@@ -1,0 +1,28 @@
+"""Carry state from the JAX package into the port.
+
+Both take numpy arrays (``np.asarray`` of the JAX package's arrays) and
+return the port's tensors (copies, never views of the arrays), so that the two packages compute the same thing
+from the same numbers.  ``dtype=None`` keeps the arrays' dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tensornetwork_tpu_torch.config import Device, as_tensor
+from tensornetwork_tpu_torch.models.mpo import MPO
+
+
+def mpo_from_numpy(Ws, vL, vR, *, device: Optional[Device] = None,
+                   dtype: Optional[torch.dtype] = None) -> MPO:
+    """An :class:`MPO` from (N, M, M, d, d), (M,), (M,) arrays."""
+    return MPO(*(as_tensor(np.array(a), device, dtype)
+                 for a in (Ws, vL, vR)))
+
+
+def mps_from_numpy(As, *, device: Optional[Device] = None,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An MPS stack (N, chi, d, chi), or a batch of them, as a tensor."""
+    return as_tensor(np.array(As), device, dtype)

@@ -1,0 +1,77 @@
+"""The port stands alone: no JAX, and no silent fall back to the CPU."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import tensornetwork_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+bad = [m for m in sys.modules
+       if m.startswith("jax") or m == "tensornetwork_tpu"
+       or m.startswith("tensornetwork_tpu.")]
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    # "tensornetwork_tpu_torch" itself starts with "tensornetwork_tpu":
+    # only the package of that exact name and its submodules count
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from tensornetwork_tpu_torch import BatchedDMRG, FiniteDMRG, FiniteTFI
+    from tensornetwork_tpu_torch.config import default_device
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FiniteTFI(1.0, 1.0, N=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        random_mps_stack(0, 4, 2)
+    mpo = FiniteTFI(1.0, 1.0, N=4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FiniteDMRG(np.zeros((4, 2, 2, 2)), mpo)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedDMRG(np.zeros((1, 4, 2, 2, 2)), mpo)
+    # an explicit CPU request, or CPU tensors, run on the CPU
+    assert default_device("cpu").type == "cpu"
+    assert random_mps_stack(0, 4, 2, device="cpu").device.type == "cpu"
+    assert FiniteDMRG(torch.zeros((4, 2, 2, 2)), mpo).As.device.type == "cpu"
+
+
+def test_highest_precision_restores_settings():
+    from tensornetwork_tpu_torch.config import highest_precision
+
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32,
+              torch.get_float32_matmul_precision())
+    with highest_precision():
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.get_float32_matmul_precision() == "highest"
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision()) == before
+
+
+def test_kernel_build_key_covers_every_source():
+    from tensornetwork_tpu_torch.ops import _build
+
+    for name in _build.SOURCES + _build.HEADERS:
+        assert (_build.CSRC / name).is_file()
+    assert len(_build.build_key()) == 16
+    assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
