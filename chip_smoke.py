@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch twin at the main path's shapes, runs the main path -- one-site
-DMRG of the transverse-field Ising chain, N=32, chi=64, d=2, M=3, m=10
-Krylov vectors, f32, single instance and a batch of 256 -- and checks the
-energies against the converged reference and a small chain against exact
-diagonalisation.  Every phase prints one JSON line; a failed check exits
-non-zero.  Needs one CUDA card and nvcc; without a card it exits 1 before
-printing any result.  The last line is
+PyTorch twin at the shapes its path gives it, and runs the paths -- one-site
+DMRG of the transverse-field Ising chain, N=32, d=2, M=3, m=10 Krylov
+vectors, f32: at chi=64 single instance and a batch of 256 (resident
+tier), and single instance at chi=384, 512 and 1024 (two-pass, streamed
+and streamed-matvec tiers) -- and checks the energies against the
+converged reference and a small chain against exact diagonalisation.
+Every phase prints one JSON line; a failed check exits non-zero.  Needs
+one CUDA card and nvcc; without a card it exits 1 before printing any
+result.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import json
@@ -24,11 +26,29 @@ import numpy as np
 REFERENCE_ENERGY = -40.384313161218365  # TFI N=32 chi=64, converged
 N, CHI, D, M, KRYLOV, BATCH = 32, 64, 2, 3, 10, 256
 SINGLE_SWEEPS, BATCH_SWEEPS = 8, 8
+# The large-chi paths: (chi, the tier the router must take, sweeps).
+LARGE_CHI = ((384, "two_pass", 4), (512, "streamed", 4),
+             (1024, "streamed_matvec", 3))
+# Kernel launches per large-chi sweep: every site is solved twice.
+TIER_LAUNCHES = {
+    "two_pass": {"fused_lanczos_fact": 2 * N, "fused_lanczos_replay": 2 * N},
+    "streamed": {"fused_lanczos_streamed": 2 * N},
+    "streamed_matvec": {"streamed_matvec": 2 * N * KRYLOV}}
+TIER_CHI = {tier: chi for chi, tier, _ in LARGE_CHI}
+NT4_CHI = 256  # K7 at nt=4 (the two-site tile count), correctness only
+DEV = "cuda"
 # Accepted window of E - REFERENCE_ENERGY, where E is the energy of the
 # returned f32 state evaluated in f64 (<psi|H|psi>/<psi|psi>).  The sweep's
 # own f32 Ritz value is printed beside it: its environments sum 32 sites'
 # energies in f32, which leaves it ~1e-4 of noise either side.
 DE_LO, DE_HI = -1e-5, 1e-4
+# The large-chi sweeps start from a random state and run 3-4 sweeps: the
+# state must be variational (DE_LO) and converged to DE_LARGE_HI.  On an
+# H100 80GB HBM3 at 700 W the states ended at +8e-9 (chi=384), +1.2e-8
+# (512) and +2.0e-8 (1024), while the first sweep's own Ritz value still
+# sat 8e-4 to 4e-3 above; 1e-6 keeps a 50x margin and fails a state that
+# stalls.
+DE_LARGE_HI = 1e-6
 # fp32 kernel against its fp32 twin: the same products summed in other
 # orders, a few ulp of 768-term sums; 1e-4 relative leaves headroom and
 # still catches a TF32 product (~1e-3).
@@ -75,10 +95,36 @@ def hermitian_operands(torch, B, chi, d, M, seed):
     W = rng.standard_normal((M, M, d, d))
     W = (W + W.transpose(1, 0, 3, 2)) / 2
     x = rng.standard_normal((B, chi, d, chi))
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     solver = [torch.as_tensor(a, dtype=torch.float32, device=dev)
               for a in (L, W, R, x)]
     return solver, K.prepare_operands(*solver)
+
+
+def breakdown_operands(torch, B, chi):
+    """A diagonal operator in kernel layout and B starts: B-1 product
+    states (eigenvectors, so the chain dies at step 0) and a zero start
+    (dead from step 0)."""
+    dev = torch.device(DEV)
+    Wd = torch.zeros((M, M, D, D), device=dev)
+    Wd[0, 0] = torch.eye(D, device=dev)
+    Ld = torch.zeros((B, M, chi, chi), device=dev)
+    Ld[:, 0] = torch.diag(torch.arange(1.0, chi + 1.0, device=dev))
+    Rd = torch.zeros((B, M, chi, chi), device=dev)
+    Rd[:, 0] = torch.eye(chi, device=dev)
+    xd = torch.zeros((B, D, chi, chi), device=dev)
+    xd[:, 0, 0, 0] = 3.0
+    xd[B - 1] = 0.0
+    return Ld, Wd, Rd, xd
+
+
+def breakdown_sentinels(ab, V=None):
+    """The +1e10 alphas, zero betas and zero vectors of breakdown_operands'
+    chains (the alpha of a live step 0 is exactly 1)."""
+    ok = bool((ab[:-1, 0, 1:] == 1e10).all() and (ab[-1, 0] == 1e10).all()
+              and (ab[:, 1] == 0).all() and (ab[:-1, 0, 0] == 1.0).all())
+    return ok and (V is None or bool((V[:, 1:] == 0).all()
+                                     and (V[-1] == 0).all()))
 
 
 def matvec_work(B, chi, d, M):
@@ -87,6 +133,27 @@ def matvec_work(B, chi, d, M):
     flops = B * (4 * M * d * chi ** 3 + 2 * M * M * d * d * chi ** 2)
     nbytes = 4 * (B * (2 * M + 2 * d) * chi ** 2 + M * M * d * d)
     return flops, nbytes
+
+
+def lanczos_work(B, chi, matvecs, out_vectors):
+    """(flops, bytes) of a Lanczos factorization of B instances: `matvecs`
+    matvecs plus ~10 vector flops per element per step; L, R, x0 and W
+    read once, `out_vectors` d*chi^2 vectors and (alpha, beta) written
+    (f32)."""
+    mv_flops, _ = matvec_work(B, chi, D, M)
+    flops = matvecs * (mv_flops + 10 * B * D * chi * chi)
+    nbytes = 4 * (B * (2 * M * chi ** 2 + D * chi ** 2
+                       + out_vectors * D * chi ** 2 + 2 * KRYLOV) + M * M * D * D)
+    return flops, nbytes
+
+
+def dmrg_sweep_flops(N, chi, d, M, m):
+    """FLOPs of one one-site sweep on uniform stacks, the formula of the JAX
+    package's utils/profiling.py dmrg_sweep_flops: per site m matvecs, one
+    QR and one env update; every site is visited twice."""
+    matvec = 2 * (2 * chi ** 3 * d * M + chi ** 2 * d ** 2 * M ** 2)
+    per_site = m * matvec + 2 * 2 * (chi * d) * chi ** 2 + matvec
+    return 2 * N * per_site
 
 
 def bound(flops, nbytes):
@@ -160,27 +227,12 @@ def k2_phase(torch):
         plain_ms = cuda_ms(
             torch, lambda: K.fused_lanczos_plain(Lt, W, Rt, xt, KRYLOV), 3)
 
-        # breakdown: a product state on a diagonal operator dies at step 0
-        dev = torch.device("cuda")
-        Wd = torch.zeros((M, M, D, D), device=dev)
-        Wd[0, 0] = torch.eye(D, device=dev)
-        Ld = torch.zeros((4, M, CHI, CHI), device=dev)
-        Ld[:, 0] = torch.diag(torch.arange(1.0, CHI + 1.0, device=dev))
-        Rd = torch.zeros((4, M, CHI, CHI), device=dev)
-        Rd[:, 0] = torch.eye(CHI, device=dev)
-        xd = torch.zeros((4, D, CHI, CHI), device=dev)
-        xd[:, 0, 0, 0] = 3.0
-        xd[3] = 0.0                    # a zero start is dead from step 0
+        Ld, Wd, Rd, xd = breakdown_operands(torch, 4, CHI)
         Vd, abd = K.fused_lanczos(Ld, Wd, Rd, xd, KRYLOV)
         Vd0, abd0 = K.fused_lanczos_plain(Ld, Wd, Rd, xd, KRYLOV)
-    sentinels = bool((abd[:3, 0, 1:] == 1e10).all() and (abd[3, 0] == 1e10).all()
-                     and (abd[:, 1] == 0).all() and (Vd[:, 1:] == 0).all()
-                     and (abd[:3, 0, 0] == 1.0).all())
+    sentinels = breakdown_sentinels(abd, Vd)
     same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
-    mv_flops, _ = matvec_work(BATCH, CHI, D, M)
-    flops = KRYLOV * (mv_flops + 10 * BATCH * D * CHI * CHI)
-    nbytes = 4 * (BATCH * (2 * M * CHI ** 2 + D * CHI ** 2
-                           + KRYLOV * D * CHI ** 2 + 2 * KRYLOV) + M * M * D * D)
+    flops, nbytes = lanczos_work(BATCH, CHI, KRYLOV, KRYLOV)
     bound_ms, bound_by = bound(flops, nbytes)
     emit(phase="k2_fused_lanczos", shape=[BATCH, CHI, D, M, KRYLOV],
          max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, max_abs_err=err,
@@ -192,6 +244,170 @@ def k2_phase(torch):
     check(sentinels and same, "K2 breakdown sentinels wrong")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def k3_phase(torch):
+    """K3, the two-pass Lanczos (fact, then replay with the Ritz weights),
+    at the chi=384 path's shapes."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    from tensornetwork_tpu_torch.ops.krylov import tridiag_ritz
+    chi = TIER_CHI["two_pass"]
+    _, (Lt, W, Rt, xt) = hermitian_operands(torch, 1, chi, D, M, seed=3)
+
+    def ritz_weights(ab):
+        return tridiag_ritz(ab[:, 0], ab[:, 1, :-1], "eigh")[1].contiguous()
+
+    with highest_precision():
+        ab = K.fused_lanczos_fact(Lt, W, Rt, xt, KRYLOV)
+        ab0 = K.fused_lanczos_fact_plain(Lt, W, Rt, xt, KRYLOV)
+        wts = ritz_weights(ab)
+        y = K.fused_lanczos_replay(Lt, W, Rt, xt, wts, ab)
+        y0 = K.fused_lanczos_replay_plain(Lt, W, Rt, xt, wts, ab)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(ab).all() and torch.isfinite(y).all()),
+              "K3 output not finite")
+        rel_ab, rel_y = max_rel(ab, ab0), max_rel(y, y0)
+        err = max(float((ab - ab0).abs().max()), float((y - y0).abs().max()))
+        fact_ms = cuda_ms(torch, lambda: K.fused_lanczos_fact(
+            Lt, W, Rt, xt, KRYLOV), 5)
+        replay_ms = cuda_ms(torch, lambda: K.fused_lanczos_replay(
+            Lt, W, Rt, xt, wts, ab), 5)
+        plain_ms = cuda_ms(torch, lambda: K.fused_lanczos_replay_plain(
+            Lt, W, Rt, xt, wts, K.fused_lanczos_fact_plain(
+                Lt, W, Rt, xt, KRYLOV)), 3)
+
+        Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
+        abd = K.fused_lanczos_fact(Ld, Wd, Rd, xd, KRYLOV)
+        abd0 = K.fused_lanczos_fact_plain(Ld, Wd, Rd, xd, KRYLOV)
+        wd = torch.ones((2, KRYLOV), device=xd.device)  # dead v_j add 0
+        yd = K.fused_lanczos_replay(Ld, Wd, Rd, xd, wd, abd)
+        yd0 = K.fused_lanczos_replay_plain(Ld, Wd, Rd, xd, wd, abd0)
+    sentinels = breakdown_sentinels(abd) and bool(
+        torch.equal(yd[0], xd[0] / 3) and (yd[1] == 0).all())
+    same = bool(torch.equal(abd, abd0) and torch.equal(yd, yd0))
+    bound_ms, bound_by = bound(*lanczos_work(1, chi, 2 * KRYLOV - 1, 1))
+    ms = fact_ms + replay_ms
+    emit(phase="k3_two_pass", shape=[1, chi, D, M, KRYLOV],
+         max_rel_err_ab=rel_ab, max_rel_err_y=rel_y, max_abs_err=err,
+         breakdown_sentinels=sentinels, breakdown_equals_twin=same,
+         fact_ms=fact_ms, replay_ms=replay_ms, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by,
+         grid={k: K.last_grid[k] for k in ("fused_lanczos_fact",
+                                           "fused_lanczos_replay")})
+    check(rel_ab <= KERNEL_RTOL and rel_y <= KERNEL_RTOL,
+          f"K3 disagrees with its twins: ab {rel_ab}, y {rel_y}")
+    check(sentinels and same, "K3 breakdown sentinels wrong")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def k4_phase(torch):
+    """K4, the streamed whole-Lanczos kernel, at the chi=512 path's shapes,
+    against its twin and against K2 (the same function) on the same
+    operands."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    chi = TIER_CHI["streamed"]
+    _, (Lt, W, Rt, xt) = hermitian_operands(torch, 1, chi, D, M, seed=4)
+    with highest_precision():
+        V, ab = K.fused_lanczos_streamed(Lt, W, Rt, xt, KRYLOV)
+        V0, ab0 = K.fused_lanczos_plain(Lt, W, Rt, xt, KRYLOV)
+        V2, ab2 = K.fused_lanczos(Lt, W, Rt, xt, KRYLOV)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(V).all() and torch.isfinite(ab).all()),
+              "K4 output not finite")
+        rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
+        k2_rel_ab, k2_rel_V = max_rel(ab, ab2), max_rel(V, V2)
+        err = max(float((ab - ab0).abs().max()), float((V - V0).abs().max()))
+        ms = cuda_ms(torch, lambda: K.fused_lanczos_streamed(
+            Lt, W, Rt, xt, KRYLOV), 5)
+        k2_ms = cuda_ms(torch, lambda: K.fused_lanczos(
+            Lt, W, Rt, xt, KRYLOV), 2, warmup=0)
+        plain_ms = cuda_ms(
+            torch, lambda: K.fused_lanczos_plain(Lt, W, Rt, xt, KRYLOV), 3)
+
+        Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
+        Vd, abd = K.fused_lanczos_streamed(Ld, Wd, Rd, xd, KRYLOV)
+        Vd0, abd0 = K.fused_lanczos_plain(Ld, Wd, Rd, xd, KRYLOV)
+    sentinels = breakdown_sentinels(abd, Vd)
+    same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
+    grid = K.last_grid["fused_lanczos_streamed"]
+    flops, nbytes = lanczos_work(1, chi, KRYLOV, KRYLOV)
+    bound_ms, bound_by = bound(flops, nbytes)
+    emit(phase="k4_fused_lanczos_streamed", shape=[1, chi, D, M, KRYLOV],
+         max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, max_abs_err=err,
+         k2_rel_err_ab=k2_rel_ab, k2_rel_err_V=k2_rel_V,
+         breakdown_sentinels=sentinels, breakdown_equals_twin=same, grid=grid,
+         ms=ms, k2_ms=k2_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+         bound_by=bound_by, gflops_per_s=flops / ms / 1e6)
+    check(rel_ab <= KERNEL_RTOL and rel_V <= KERNEL_RTOL,
+          f"K4 disagrees with its twin: ab {rel_ab}, V {rel_V}")
+    check(k2_rel_ab <= KERNEL_RTOL and k2_rel_V <= KERNEL_RTOL,
+          f"K4 disagrees with K2: ab {k2_rel_ab}, V {k2_rel_V}")
+    check(grid > 1, f"K4 ran one instance on {grid} block(s)")
+    check(sentinels and same, "K4 breakdown sentinels wrong")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def k7_phase(torch):
+    """K7, the streamed matvec, at the chi=1024 path's shapes (nt=2), and
+    at nt=4, chi=256 for correctness; the breakdown through the
+    recurrence around it."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    chi = TIER_CHI["streamed_matvec"]
+    (L, W, R, x), (Lt, W_, Rt, xt) = hermitian_operands(torch, 1, chi, D, M,
+                                                        seed=7)
+    with highest_precision():
+        y, alpha = K.streamed_matvec(Lt, W_, Rt, xt)
+        y0, alpha0 = K.streamed_matvec_plain(Lt, W_, Rt, xt)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(alpha).all()),
+              "K7 output not finite")
+        rel = max_rel(y, y0)
+        scale = float(xt.norm() * y0.norm())  # alpha may cancel
+        rel_alpha = float((alpha - alpha0).abs().max()) / scale
+        own_alpha = float((alpha - (xt * y).sum()).abs().max()) / scale
+        err = max(float((y - y0).abs().max()),
+                  float((alpha - alpha0).abs().max()))
+        ms = cuda_ms(torch, lambda: K.streamed_matvec(Lt, W_, Rt, xt), 10)
+        plain_ms = cuda_ms(torch, lambda: K.streamed_matvec_plain(
+            Lt, W_, Rt, xt), 10)
+        lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x), 10)
+        lib_err = max_rel(K.finalize_output(y), K.heff_matvec_reference(L, W, R, x))
+
+        # nt=4 (the two-site tile count) at chi=256, correctness only
+        g = torch.Generator(device=DEV).manual_seed(8)
+        kw = dict(device=DEV, generator=g)
+        L4, R4 = (torch.randn((1, M, NT4_CHI, NT4_CHI), **kw) / NT4_CHI ** 0.5
+                  for _ in range(2))
+        C4 = torch.randn((M, M, 4, 4), **kw)
+        x4 = torch.randn((1, 4, NT4_CHI, NT4_CHI), **kw)
+        y4, a4 = K.streamed_matvec(L4, C4, R4, x4)
+        y40, a40 = K.streamed_matvec_plain(L4, C4, R4, x4)
+        rel4 = max(max_rel(y4, y40),
+                   float((a4 - a40).abs().max() / (x4.norm() * y40.norm())))
+
+        Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
+        Vd, abd = K.streamed_lanczos(Ld, Wd, Rd, xd, KRYLOV)
+        Vd0, abd0 = K.fused_lanczos_plain(Ld, Wd, Rd, xd, KRYLOV)
+    sentinels = breakdown_sentinels(abd, Vd)
+    same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
+    bound_ms, bound_by = bound(*matvec_work(1, chi, D, M))
+    emit(phase="k7_streamed_matvec", shape=[1, chi, D, M], max_rel_err=rel,
+         alpha_rel_err=rel_alpha, alpha_vs_own_y=own_alpha, max_abs_err=err,
+         einsum_rel_err=lib_err, nt4_chi256_rel_err=rel4,
+         breakdown_sentinels=sentinels, breakdown_equals_twin=same, ms=ms,
+         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+         bound_by=bound_by)
+    check(max(rel, rel_alpha, own_alpha, rel4) <= KERNEL_RTOL,
+          f"K7 disagrees with its twin: y {rel}, alpha {rel_alpha}, "
+          f"alpha vs its y {own_alpha}, nt=4 {rel4}")
+    check(sentinels and same, "K7 breakdown sentinels wrong")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
 
 
 def state_delta_e(torch, As, mpo64):
@@ -322,6 +538,66 @@ def variational_phase(torch):
               f"N={n} {dtype}: E {e} vs exact {exact}")
 
 
+def large_chi_phase(torch, chi, tier, sweeps, solve_ms):
+    """One-site sweeps of one TFI N=32 chain at bond dimension chi, through
+    the tier the router picks.  The launch counts are set to 0 just before
+    and read just after; returns them.  ``solve_ms``: the tier's kernel
+    time of one local solve, measured by its kernel phase; one more sweep,
+    after the counts are read, is traced for the device's busy time."""
+    from tensornetwork_tpu_torch import FiniteTFI, one_site_sweep
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.ops import kernels as K
+    taken = K.one_site_tier(chi, D, M, KRYLOV)
+    check(taken == tier, f"chi={chi}: the router takes {taken}, not {tier}")
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    As = random_mps_stack(chi, N, chi, D, dtype=torch.float32)
+    renvs, times, energies, per_sweep = None, [], [], []
+    K.reset_launch_counts()
+    for _ in range(sweeps):
+        before = dict(K.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
+                             num_krylov_vecs=KRYLOV, renvs=renvs)
+        energies.append(float(res.energy))   # synchronises
+        times.append(time.perf_counter() - t0)
+        per_sweep.append({k: K.launch_counts[k] - before[k]
+                          for k in K.launch_counts if K.launch_counts[k] - before[k]})
+        As, renvs = res.As, res.renvs
+    launches = dict(K.launch_counts)
+    check(bool(torch.isfinite(As).all()) and As.shape == (N, chi, D, chi),
+          f"chi={chi}: state not finite or misshapen")
+    de = state_delta_e(torch, As, mpo64)
+    sweep_s = statistics.median(times[1:])
+    busy_ms = device_busy_ms(torch, lambda: one_site_sweep(
+        As, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV, renvs=renvs))
+    emit(phase="large_chi", chi=chi, tier=tier, sweeps=sweeps, delta_E=de,
+         ritz_delta_E_per_sweep=[e - REFERENCE_ENERGY for e in energies],
+         sweeps_per_s=1 / sweep_s, first_sweep_s=times[0], sweep_s=times,
+         tflops_per_s=dmrg_sweep_flops(N, chi, D, M, KRYLOV) / sweep_s / 1e12,
+         kernel_share=2 * N * solve_ms / (1e3 * sweep_s),
+         device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / (1e3 * sweep_s),
+         launches_per_sweep=per_sweep)
+    check(all(c == TIER_LAUNCHES[tier] for c in per_sweep),
+          f"chi={chi}: launches per sweep {per_sweep}, expected "
+          f"{TIER_LAUNCHES[tier]}")
+    check(DE_LO <= de <= DE_LARGE_HI,
+          f"chi={chi}: delta E {de} outside [{DE_LO}, {DE_LARGE_HI}]")
+    del As, renvs, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("heff_matvec", "heff_matvec.cu", "kernels.py:48"),
+    ("fused_lanczos", "fused_lanczos.cu", "kernels.py:138"),
+    ("fused_lanczos_2pass", "fused_lanczos_2pass.cu", "kernels.py:278"),
+    ("fused_lanczos_streamed", "fused_lanczos_streamed.cu", "kernels.py:437"),
+    ("streamed_matvec", "streamed_matvec.cu", "kernels.py:1257"))
+
+
 def main():
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -329,30 +605,41 @@ def main():
     t_start = time.perf_counter()
     card = device_phase(torch)
     build_phase()
-    k1 = k1_phase(torch)
-    k2 = k2_phase(torch)
+    meas = {"heff_matvec": k1_phase(torch), "fused_lanczos": k2_phase(torch),
+            "fused_lanczos_2pass": k3_phase(torch),
+            "fused_lanczos_streamed": k4_phase(torch),
+            "streamed_matvec": k7_phase(torch)}
 
-    # the main path: every count at 0 just before, read just after
+    # the chi=64 path: every count at 0 just before, read just after
     K.reset_launch_counts()
     single_phase(torch)
     As, renvs, mpo, sweep_s = batched_phase(torch)
     launches = dict(K.launch_counts)
-    emit(phase="main_path_launches", **launches)
+    emit(phase="main_path_launches", chi=CHI, **launches)
     check(launches["fused_lanczos"] > 0 and launches["heff_matvec"] > 0,
           f"a kernel of the main path never launched: {launches}")
 
-    host_share_phase(torch, As, renvs, mpo, sweep_s, k2["ms"])
+    host_share_phase(torch, As, renvs, mpo, sweep_s, meas["fused_lanczos"]["ms"])
     del As, renvs
+    torch.cuda.empty_cache()
     variational_phase(torch)
 
-    kernels = []
-    for name, meas, src, replaces in (
-            ("heff_matvec", k1, "tensornetwork_tpu_torch/csrc/heff_matvec.cu",
-             "tensornetwork_tpu/ops/kernels.py:48"),
-            ("fused_lanczos", k2, "tensornetwork_tpu_torch/csrc/fused_lanczos.cu",
-             "tensornetwork_tpu/ops/kernels.py:138")):
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name], **meas))
+    # the large-chi paths, each with its own counts
+    solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],
+                "streamed": meas["fused_lanczos_streamed"]["ms"],
+                "streamed_matvec": KRYLOV * meas["streamed_matvec"]["ms"]}
+    for chi, tier, sweeps in LARGE_CHI:
+        counts = large_chi_phase(torch, chi, tier, sweeps, solve_ms[tier])
+        for name in TIER_LAUNCHES[tier]:
+            launches[name] = counts[name]
+    launches["fused_lanczos_2pass"] = (launches.pop("fused_lanczos_fact")
+                                       + launches.pop("fused_lanczos_replay"))
+
+    kernels = [dict(name=name, route="cuda",
+                    source="tensornetwork_tpu_torch/csrc/" + src,
+                    replaces="tensornetwork_tpu/ops/" + replaces,
+                    launches=launches[name], **meas[name])
+               for name, src, replaces in KERNELS]
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of :mod:`tensornetwork_tpu`, one slice at a time.
 
-This slice: one-site DMRG, single instance and batched, with the
-fused-Lanczos and H_eff matvec kernels written in CUDA for Hopper
-(``csrc/``).  The package imports torch, numpy and ctypes, never JAX.
+Ported so far: one-site DMRG, single instance and batched, with its local
+solve a ladder of tiers by bond dimension (resident, two-pass, streamed,
+streamed matvec), each on kernels written in CUDA for Hopper (``csrc/``).  The package imports torch, numpy and ctypes, never JAX.
 Entry points run on the CUDA card unless handed CPU tensors or
 ``device="cpu"``.
 """

@@ -1,5 +1,6 @@
-// Device code shared by the H_eff matvec kernel (heff_matvec.cu) and the
-// fused Lanczos kernel (fused_lanczos.cu).
+// Device code shared by the H_eff matvec kernel (heff_matvec.cu), the fused
+// Lanczos kernel (fused_lanczos.cu), the grid-wide Lanczos kernels
+// (lanczos_grid.cuh) and the streamed matvec (streamed_matvec.cu).
 //
 // Index conventions (kernel layout, see ops/kernels.py prepare_operands):
 //   Lt[w][c][a]   W[w][v][s][t]   Rt[v][b][d]   x[t][a][b]   ->  y[s][c][d]
@@ -7,6 +8,11 @@
 // Stage 2:  y_s = sum_v (sum_{w,t} W[w,v,s,t] P[w*d+t]) @ Rt_v
 //           the couplings are folded into the A operand while it is staged
 //           through shared memory, so Q_vs never exists as a tensor.
+//
+// Operands that a kernel may write while it runs (the Krylov vectors, the
+// scratch P) are read through plain pointers, never `const __restrict__`,
+// so that the compiler does not route them through the non-coherent
+// read-only cache.
 //
 // Both stages are built from one fp32/fp64 SIMT tile GEMM: a 64x64 output
 // tile per 256-thread block, 4x4 outputs per thread, the contraction staged
@@ -41,7 +47,7 @@ __host__ __device__ inline int num_tiles(int chi) {
 // A operand of stage 1: a plain row-major chi x chi matrix.
 template <typename T>
 struct LoadPlain {
-  const T* __restrict__ A;
+  const T* A;
   int ld;
   __device__ T operator()(int r, int k) const { return A[(size_t)r * ld + k]; }
 };
@@ -51,7 +57,7 @@ struct LoadPlain {
 // is uniform across the block.
 template <typename T>
 struct LoadQ {
-  const T* __restrict__ P;
+  const T* P;
   const T* coef;  // shared memory, n entries
   int n;
   size_t plane;   // chi*chi
@@ -73,7 +79,7 @@ struct LoadQ {
 // __syncthreads(), so the caller may reuse the shared buffers at once.
 template <typename T, typename ALoad>
 __device__ void tile_gemm(T (&acc)[SUB][SUB], const ALoad& aload,
-                          const T* __restrict__ Bm, int ldb, int K,
+                          const T* Bm, int ldb, int K,
                           int n_rows, int n_cols, int r0, int c0,
                           Smem<T>& sm) {
   const int tid = threadIdx.x;
@@ -146,9 +152,8 @@ __device__ void load_couplings(const T* __restrict__ W, int d, int M,
 
 // One output tile of stage 1.  job in [0, M*d*nt*nt).
 template <typename T>
-__device__ void stage1_tile(int job, const T* __restrict__ Lt,
-                            const T* __restrict__ x, T* __restrict__ P,
-                            int chi, int d, Smem<T>& sm) {
+__device__ void stage1_tile(int job, const T* Lt, const T* x, T* P, int chi,
+                            int d, Smem<T>& sm) {
   const int nt = num_tiles(chi);
   const int wt = job / (nt * nt), tile = job % (nt * nt);
   const int w = wt / d, t = wt % d;
@@ -161,12 +166,33 @@ __device__ void stage1_tile(int job, const T* __restrict__ Lt,
   store_tile(acc, P + wt * plane, chi, chi, chi, r0, c0);
 }
 
+// This thread's share of <X, tile> over the outputs it owns (masked).
+template <typename T>
+__device__ T tile_dot(const T (&acc)[SUB][SUB], const T* X, int ld,
+                      int n_rows, int n_cols, int r0, int c0) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  T part = T(0);
+#pragma unroll
+  for (int i = 0; i < SUB; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < n_cols) part += X[(size_t)r * ld + c] * acc[i][j];
+    }
+  }
+  return part;
+}
+
 // One output tile of stage 2.  job in [0, d*nt*nt).  Needs the couplings
 // in sm.wc (load_couplings) and every P plane of the instance complete.
+// With `dotv` (d planes like y) returns this thread's share of
+// <dotv, y> over the tile, else 0.
 template <typename T>
-__device__ void stage2_tile(int job, const T* __restrict__ Rt,
-                            const T* __restrict__ P, T* __restrict__ y,
-                            int chi, int d, int M, Smem<T>& sm) {
+__device__ T stage2_tile(int job, const T* Rt, const T* P, T* y, int chi,
+                         int d, int M, Smem<T>& sm,
+                         const T* dotv = nullptr) {
   const int nt = num_tiles(chi);
   const int s = job / (nt * nt), tile = job % (nt * nt);
   const size_t plane = (size_t)chi * chi;
@@ -178,6 +204,8 @@ __device__ void stage2_tile(int job, const T* __restrict__ Rt,
     tile_gemm(acc, aload, Rt + v * plane, chi, chi, chi, chi, r0, c0, sm);
   }
   store_tile(acc, y + s * plane, chi, chi, chi, r0, c0);
+  return dotv ? tile_dot(acc, dotv + s * plane, chi, chi, chi, r0, c0)
+              : T(0);
 }
 
 template <typename T>

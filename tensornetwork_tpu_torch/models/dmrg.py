@@ -6,7 +6,10 @@ boundary environments, as in the JAX package.  Where JAX runs a sweep as
 one ``lax.scan`` and batches it with ``vmap``, the port runs a Python loop
 over the sites on tensors with a leading batch dimension: the single
 instance is a batch of one, and the batch rides the fused-Lanczos
-kernel's grid (:mod:`tensornetwork_tpu_torch.parallel.batch`).
+kernel's grid (:mod:`tensornetwork_tpu_torch.parallel.batch`).  The fused
+local solve takes the kernel tier that
+:func:`~tensornetwork_tpu_torch.ops.kernels.one_site_tier` picks for the
+bond dimension, as the JAX package does.
 
 Conventions:
   A[l, s, r]        ket site tensor
@@ -18,6 +21,7 @@ shared by the batch, or (B, M, M, d, d).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -90,16 +94,29 @@ def _rq_shift_left(A, impl: str):
     return rt.mT, qt.mT.reshape(B, chi_l, d, chi_r)
 
 
+# The fused local solve of each tier of kernels.one_site_tier.
+_FUSED_TIERS = {
+    "resident": kernels.fused_lanczos_ground_state,
+    "two_pass": functools.partial(kernels.fused_lanczos_ground_state,
+                                  two_pass=True),
+    "streamed": kernels.fused_lanczos_ground_state_streamed,
+    "streamed_matvec": kernels.fused_lanczos_ground_state_streamed2,
+}
+
+
 def _local_solve_1s(Lenv, W, Renv, A, num_krylov_vecs: int, ritz_impl: str,
                     reorth: bool, lanczos_impl: str):
     """Smallest Ritz pair of every instance's H_eff.  ``"fused"`` is the
-    fused-Lanczos kernel (plain three-term recurrence; ``reorth`` does not
+    fused-Lanczos kernels of the tier :func:`kernels.one_site_tier` picks
+    for the shape (plain three-term recurrence; ``reorth`` does not
     apply); ``"plain"`` is :func:`krylov.eigsh_lanczos` with the H_eff
     matvec kernel."""
     if lanczos_impl == "fused":
-        return kernels.fused_lanczos_ground_state(
-            Lenv, W, Renv, A, num_krylov_vecs=num_krylov_vecs,
-            ritz_method=ritz_impl)
+        _, chi, d, _ = A.shape
+        tier = kernels.one_site_tier(chi, d, W.shape[-4], num_krylov_vecs)
+        return _FUSED_TIERS[tier](Lenv, W, Renv, A,
+                                  num_krylov_vecs=num_krylov_vecs,
+                                  ritz_method=ritz_impl)
     if lanczos_impl != "plain":
         raise ValueError(f"unknown lanczos_impl {lanczos_impl!r}")
     Lt, W, Rt, _ = kernels.prepare_operands(Lenv, W.contiguous(), Renv, A)

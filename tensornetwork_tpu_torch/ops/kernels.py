@@ -1,25 +1,37 @@
 """Hand-written CUDA kernels of the one-site DMRG solve, with their twins.
 
-Counterpart of the one-site resident part of
-:mod:`tensornetwork_tpu.ops.kernels`.  Index conventions:
+Counterpart of the one-site part of :mod:`tensornetwork_tpu.ops.kernels`.
+Index conventions:
   L[a, w, c]   W[w, v, s, t]   R[b, v, d]   x[a, t, b]  ->  y[c, s, d]
 and the kernel layout of :func:`prepare_operands`:
   Lt (B, M, chi, chi) [w, c, a]   Rt (B, M, chi, chi) [v, b, d]
   xt (B, d, chi, chi) [t, a, b]   y  (B, d, chi, chi) [s, c, d]
   W  (M, M, d, d) shared by the batch, or (B, M, M, d, d) one per instance.
 
-Two kernels (sources in ``csrc/``, built by :mod:`._build`):
+The local solve is a ladder of tiers chosen by bond dimension
+(:func:`one_site_tier`), each with its kernels (sources in ``csrc/``, built
+by :mod:`._build`):
 
-* :func:`heff_matvec` -- one batched H_eff matvec (replaces
-  ``make_heff_matvec``).  Per instance, P_wt = Lt_w x_t, then
-  y_s = sum_v (sum_wt W[w,v,s,t] P_wt) Rt_v.
-* :func:`fused_lanczos` -- m matvecs plus the three-term recurrence per
-  instance (replaces ``make_fused_lanczos``), emitting the basis V and
-  (alpha, beta) with +1e10 sentinels on dead steps.
+* resident (chi <= 256): :func:`fused_lanczos` -- m matvecs plus the
+  three-term recurrence, one block per instance (replaces
+  ``make_fused_lanczos``), emitting the basis V and (alpha, beta) with
+  +1e10 sentinels on dead steps.  Its GEMM core is :func:`heff_matvec`,
+  one batched H_eff matvec (replaces ``make_heff_matvec``), the matvec of
+  the plain route.
+* two_pass (chi = 384): :func:`fused_lanczos_fact` emits (alpha, beta)
+  only, :func:`fused_lanczos_replay` reruns the recurrence and accumulates
+  the Ritz vector (replace ``make_fused_lanczos_2pass``).
+* streamed (chi = 512): :func:`fused_lanczos_streamed`, K2's function with
+  the whole card on each instance (replaces
+  ``make_fused_lanczos_streamed``).
+* streamed_matvec (chi = 1024): :func:`streamed_matvec` returns (H x,
+  <x, H x>) (replaces ``make_streamed_matvec``); the recurrence runs in
+  PyTorch (:func:`streamed_lanczos`).
 
 Each wrapper runs its plain-PyTorch twin (same algorithm) when handed CPU
 tensors, and launches its kernel, or raises, when handed CUDA tensors.
-``launch_counts`` counts kernel launches only.
+``launch_counts`` counts kernel launches only; ``last_grid`` keeps the
+blocks of the last launch of the grid-wide kernels.
 """
 from __future__ import annotations
 
@@ -33,19 +45,39 @@ from tensornetwork_tpu_torch.ops import _build, krylov
 LARGE = krylov.LARGE
 
 # kernel launches since the last reset_launch_counts(); twins do not count
-launch_counts: Dict[str, int] = {"heff_matvec": 0, "fused_lanczos": 0}
+launch_counts: Dict[str, int] = {
+    "heff_matvec": 0, "fused_lanczos": 0, "fused_lanczos_fact": 0,
+    "fused_lanczos_replay": 0, "fused_lanczos_streamed": 0,
+    "streamed_matvec": 0}
+# blocks of the last launch of each grid-wide (cooperative) kernel
+last_grid: Dict[str, int] = {}
 
 _MAX_COUPLINGS = 1024  # heff::MAX_COUPLINGS in csrc/heff.cuh
+_TILE = 64             # heff::TILE: output tile edge
+_SEG = 4096            # lgrid::SEG in csrc/lanczos_grid.cuh: segment length
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _ARGTYPES = {
-    "tn_heff_matvec": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _P],
-    "tn_fused_lanczos": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, ctypes.c_double, _P],
+    "tn_heff_matvec": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tn_fused_lanczos": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _D, _P],
+    "tn_fused_lanczos_streamed": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _I, _I, _I, _D, _P, _P],
+    "tn_fused_lanczos_fact": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _I, _D, _P, _P],
+    "tn_fused_lanczos_replay": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _I, _I, _I, _I, _I, _D, _P, _P],
+    "tn_streamed_matvec": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P],
 }
 _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
-            "tn_fused_lanczos": "fused_lanczos.cu"}
+            "tn_fused_lanczos": "fused_lanczos.cu",
+            "tn_fused_lanczos_streamed": "fused_lanczos_streamed.cu",
+            "tn_fused_lanczos_fact": "fused_lanczos_2pass.cu",
+            "tn_fused_lanczos_replay": "fused_lanczos_2pass.cu",
+            "tn_streamed_matvec": "streamed_matvec.cu"}
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
 
@@ -68,6 +100,14 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _launch_grid(name: str, dtype: torch.dtype, device: torch.device, *args):
+    """Launch a cooperative kernel (its C function takes ``int* grid``
+    before the stream) and record the blocks it launched."""
+    grid = ctypes.c_int(0)
+    _launch(name, dtype, device, *args, ctypes.addressof(grid))
+    last_grid[name[3:]] = grid.value
 
 
 def prepare_operands(L, W, R, x):
@@ -155,49 +195,153 @@ def heff_matvec(Lt, W, Rt, xt):
 
 
 # ---------------------------------------------------------------------------
-# K2: the whole Lanczos factorization of one site
+# The tier router
+# ---------------------------------------------------------------------------
+
+# The JAX package's TPU budgets (its ops/vmem.py: 12 MB for the resident and
+# two-pass kernels, 14 MB for the chunked planners, and for d > 2 resident
+# kernels a measured 6.36x inflation against the 16 MB physical limit).
+_RESIDENT_BYTES = 12 * 2 ** 20
+_STREAMED_BYTES = 14_000_000
+_WIDE_INFLATION, _PHYSICAL_BYTES = 6.36, 16 * 2 ** 20
+
+
+def _chunk_counts(chi: int, min_chunk: int):
+    """Power-of-two counts K that divide chi into chunks >= min_chunk."""
+    K = 1
+    while chi // K >= min_chunk:
+        if chi % K == 0:
+            yield K
+        K *= 2
+
+
+def one_site_tier(chi: int, d: int, M: int, m: int) -> str:
+    """The kernel tier of the one-site fused local solve at bond dimension
+    ``chi``, physical dimension ``d``, MPO bond ``M`` and ``m`` Krylov
+    vectors: ``"resident"``, ``"two_pass"``, ``"streamed"`` or
+    ``"streamed_matvec"``.
+
+    The thresholds are the TPU's: the byte counts of the JAX package's VMEM
+    admission (``ops/vmem.py``) against its 12 MB and 14 MB budgets, kept so
+    that both packages take the same tier at the same shape.  They say
+    nothing about this card; a later change re-picks them from the card's
+    measured tier times.  Raises ``NotImplementedError`` where the JAX
+    package takes its three-level-chunked tier (one-site chi=2048), whose
+    kernel (K8, ``make_streamed_matvec_xl``) is not ported yet (ROADMAP
+    Queue 2), or beyond it its plain Lanczos; it never takes another tier
+    instead."""
+    plane = 4 * chi * chi  # one f32 chi x chi tile
+    resident = plane * (2 * M + d * (m + 4 + M))
+    if (resident <= _RESIDENT_BYTES if d <= 2
+            else resident * _WIDE_INFLATION <= _PHYSICAL_BYTES):
+        return "resident"
+    if plane * (2 * M + 6 * d) <= _RESIDENT_BYTES:
+        return "two_pass"
+    # chi chunked K ways: Rt, x0, v, v_prev, w resident; L (two buffers),
+    # P and the basis out in chunks
+    for K in _chunk_counts(chi, 64):
+        if K > 1 and (plane * (M + 4 * d) + plane * (2 * M + M * d + 2 * d) // K
+                      <= _STREAMED_BYTES):
+            return "streamed"
+    # both output axes chunked (rows K ways, columns K2 ways): x resident;
+    # L, R, Q and y in chunks
+    for K in _chunk_counts(chi, 32):
+        for K2 in _chunk_counts(chi, 128):
+            cs, ds = chi // K, chi // K2
+            need = (plane * d + 8 * M * cs * chi
+                    + (2 if K2 > 1 else 1) * 4 * M * chi * ds
+                    + 4 * M * d * cs * chi + 8 * d * cs * ds)
+            if need <= _STREAMED_BYTES:
+                return "streamed_matvec"
+    raise NotImplementedError(
+        f"one-site chi={chi}, d={d}, M={M}: the JAX package takes its "
+        "three-level-chunked matvec here (K8, make_streamed_matvec_xl), "
+        "or beyond it its plain Lanczos; the port has no such tier yet "
+        "(ROADMAP Queue 2)")
+
+
+# ---------------------------------------------------------------------------
+# The plain three-term recurrence, shared by the twins
 # ---------------------------------------------------------------------------
 
 
-def fused_lanczos_plain(Lt, W, Rt, x0, num_krylov_vecs: int,
-                        delta: float = 1e-8):
-    """Plain-PyTorch twin of :func:`fused_lanczos` (same recurrence, same
-    masks and sentinels, matvec by :func:`heff_matvec_plain`)."""
-    m = num_krylov_vecs
-    B = x0.shape[0]
+def _vdot(a, b):
+    return (a * b).sum(dim=(1, 2, 3))
 
-    def vdot(a, b):
-        return (a * b).sum(dim=(1, 2, 3))
 
-    def bc(s):  # (B,) -> (B, 1, 1, 1)
-        return s[:, None, None, None]
+def _bc(s):  # (B,) -> (B, 1, 1, 1)
+    return s[:, None, None, None]
 
-    nrm = torch.sqrt(vdot(x0, x0))
+
+def _start(x0, delta: float):
+    """v0 = x0/|x0|, zero and dead where |x0| <= delta."""
+    nrm = torch.sqrt(_vdot(x0, x0))
     alive = nrm > delta
     inv = torch.where(alive, 1.0 / torch.where(nrm > 0, nrm, 1.0), 0.0)
-    v = x0 * bc(inv)
+    return x0 * _bc(inv), alive
+
+
+def _lanczos_recurrence(matvec, x0, m: int, delta: float):
+    """Plain three-term Lanczos, no reorthogonalisation, on (B, nt, chi,
+    chi) vectors: ``matvec(v)`` returns (H v, <v, H v>).  Returns (V (B, m,
+    nt, chi, chi), ab (B, 2, m)): alphas with +1e10 on dead steps, betas
+    with 0 on dead steps and in the last slot, zero vectors once dead."""
+    B = x0.shape[0]
+    v, alive = _start(x0, delta)
     v_prev = torch.zeros_like(x0)
-    beta_prev = torch.zeros_like(nrm)
+    beta_prev = torch.zeros((B,), dtype=x0.dtype, device=x0.device)
     V = torch.empty((B, m) + tuple(x0.shape[1:]), dtype=x0.dtype,
                     device=x0.device)
     ab = torch.zeros((B, 2, m), dtype=x0.dtype, device=x0.device)
     for j in range(m):
         V[:, j] = v
-        w = heff_matvec_plain(Lt, W, Rt, v)
-        alpha = vdot(v, w)
+        w, alpha = matvec(v)
         ab[:, 0, j] = torch.where(alive, alpha, LARGE)
-        w = w - bc(alpha) * v - bc(beta_prev) * v_prev
-        beta = torch.sqrt(vdot(w, w))
+        w = w - _bc(alpha) * v - _bc(beta_prev) * v_prev
+        beta = torch.sqrt(_vdot(w, w))
         alive_next = alive & (beta > delta)
         if j < m - 1:
             ab[:, 1, j] = torch.where(alive_next, beta, 0.0)
         inv = torch.where(beta > delta,
                           1.0 / torch.where(beta > 0, beta, 1.0), 0.0)
         v_prev = v
-        v = w * bc(inv) * bc(alive_next.to(w.dtype))
+        v = w * _bc(inv) * _bc(alive_next.to(w.dtype))
         beta_prev = torch.where(alive_next, beta, 0.0)
         alive = alive_next
     return V, ab
+
+
+def _check_krylov(m: int) -> None:
+    if m < 1:
+        raise ValueError("num_krylov_vecs must be >= 1")
+
+
+def _grid_scratch(B: int, chi: int, d: int, M: int, **kw):
+    """Scratch of the grid-wide Lanczos kernels (csrc/lanczos_grid.cuh):
+    P, w, the <v, w> partials, the norm partials and the start flags."""
+    nt = -(-chi // _TILE)
+    nseg = -(-(d * chi * chi) // _SEG)
+    return (torch.empty((B, M * d, chi, chi), **kw),
+            torch.empty((B, d, chi, chi), **kw),
+            torch.empty((B, d * nt * nt), **kw),
+            torch.empty((B, nseg), **kw),
+            torch.empty((B,), **kw))
+
+
+# ---------------------------------------------------------------------------
+# K2: the whole Lanczos factorization of one site, one block per instance
+# ---------------------------------------------------------------------------
+
+
+def fused_lanczos_plain(Lt, W, Rt, x0, num_krylov_vecs: int,
+                        delta: float = 1e-8):
+    """Plain-PyTorch twin of :func:`fused_lanczos` and of
+    :func:`fused_lanczos_streamed` (the same recurrence, masks and
+    sentinels, matvec by :func:`heff_matvec_plain`)."""
+    def matvec(v):
+        w = heff_matvec_plain(Lt, W, Rt, v)
+        return w, _vdot(v, w)
+    return _lanczos_recurrence(matvec, x0, num_krylov_vecs, delta)
 
 
 def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
@@ -210,8 +354,7 @@ def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
     reorthogonalisation)."""
     B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
     m = num_krylov_vecs
-    if m < 1:
-        raise ValueError("num_krylov_vecs must be >= 1")
+    _check_krylov(m)
     if x0.device.type == "cpu":
         return fused_lanczos_plain(Lt, W, Rt, x0, m, delta)
     kw = dict(dtype=x0.dtype, device=x0.device)
@@ -227,11 +370,205 @@ def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
     return V, ab
 
 
+# ---------------------------------------------------------------------------
+# K4: the same factorization with the whole card on each instance
+# ---------------------------------------------------------------------------
+
+
+def fused_lanczos_streamed(Lt, W, Rt, x0, num_krylov_vecs: int,
+                           delta: float = 1e-8):
+    """:func:`fused_lanczos`'s function -- the same ``(V, ab)`` from the
+    same operands -- as one cooperative launch in which every block of
+    the card works on every instance's matvec tiles and recurrence.
+    Counterpart of ``make_fused_lanczos_streamed``, the one-site chi=512
+    tier; its ``n_chunks`` (the TPU's VMEM chunking) has no meaning here.
+    The twin is :func:`fused_lanczos_plain`."""
+    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    m = num_krylov_vecs
+    _check_krylov(m)
+    if x0.device.type == "cpu":
+        return fused_lanczos_plain(Lt, W, Rt, x0, m, delta)
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    V = torch.empty((B, m, d, chi, chi), **kw)
+    ab = torch.empty((B, 2, m), **kw)
+    scratch = _grid_scratch(B, chi, d, M, **kw)
+    _launch_grid("tn_fused_lanczos_streamed", x0.dtype, x0.device,
+                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
+                 x0.data_ptr(), V.data_ptr(), ab.data_ptr(),
+                 *(t.data_ptr() for t in scratch), B, chi, d, M, m,
+                 float(delta))
+    launch_counts["fused_lanczos_streamed"] += 1
+    return V, ab
+
+
+# ---------------------------------------------------------------------------
+# K3: two-pass Lanczos (no basis storage)
+# ---------------------------------------------------------------------------
+
+
+def fused_lanczos_fact_plain(Lt, W, Rt, x0, num_krylov_vecs: int,
+                             delta: float = 1e-8):
+    """Plain-PyTorch twin of :func:`fused_lanczos_fact`: the recurrence of
+    :func:`fused_lanczos_plain`, whose basis it drops."""
+    return fused_lanczos_plain(Lt, W, Rt, x0, num_krylov_vecs, delta)[1]
+
+
+def fused_lanczos_fact(Lt, W, Rt, x0, num_krylov_vecs: int,
+                       delta: float = 1e-8):
+    """Pass 1 of the two-pass Lanczos: the ``ab`` (B, 2, m) of
+    :func:`fused_lanczos` without storing the basis.  Counterpart of
+    ``make_fused_lanczos_2pass``'s ``fact``, the one-site chi=384 tier."""
+    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    m = num_krylov_vecs
+    _check_krylov(m)
+    if x0.device.type == "cpu":
+        return fused_lanczos_fact_plain(Lt, W, Rt, x0, m, delta)
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    ring = torch.empty((B, 2, d, chi, chi), **kw)
+    ab = torch.empty((B, 2, m), **kw)
+    scratch = _grid_scratch(B, chi, d, M, **kw)
+    _launch_grid("tn_fused_lanczos_fact", x0.dtype, x0.device,
+                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
+                 x0.data_ptr(), ring.data_ptr(), ab.data_ptr(),
+                 *(t.data_ptr() for t in scratch), B, chi, d, M, m,
+                 float(delta))
+    launch_counts["fused_lanczos_fact"] += 1
+    return ab
+
+
+def fused_lanczos_replay_plain(Lt, W, Rt, x0, weights, ab,
+                               delta: float = 1e-8):
+    """Plain-PyTorch twin of :func:`fused_lanczos_replay` (the same
+    recurrence, coefficients read from ``ab``)."""
+    m = ab.shape[-1]
+    v, _ = _start(x0, delta)
+    v_prev = torch.zeros_like(x0)
+    y = torch.zeros_like(x0)
+    for j in range(m):
+        y = y + _bc(weights[:, j]) * v
+        if j == m - 1:
+            break
+        w = heff_matvec_plain(Lt, W, Rt, v)
+        # a dead step's +1e10 sentinel never reaches the update (its v is
+        # zero); clamped all the same
+        alpha = ab[:, 0, j]
+        alpha = torch.where(alpha.abs() >= LARGE, 0.0, alpha)
+        beta_prev = ab[:, 1, j - 1] if j > 0 else torch.zeros_like(alpha)
+        w = w - _bc(alpha) * v - _bc(beta_prev) * v_prev
+        beta = ab[:, 1, j]
+        inv = torch.where(beta > delta,
+                          1.0 / torch.where(beta > 0, beta, 1.0), 0.0)
+        v_prev = v
+        v = w * _bc(inv)
+    return y
+
+
+def fused_lanczos_replay(Lt, W, Rt, x0, weights, ab, delta: float = 1e-8):
+    """Pass 2 of the two-pass Lanczos: reruns :func:`fused_lanczos_fact`'s
+    recurrence with its ``ab`` and returns ``y = sum_j weights[:, j] v_j``
+    (B, d, chi, chi), unnormalised.  ``weights`` (B, m).  Counterpart of
+    ``make_fused_lanczos_2pass``'s ``replay``."""
+    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    m = ab.shape[-1]
+    _check_krylov(m)
+    if ab.shape != (B, 2, m) or weights.shape != (B, m):
+        raise ValueError(f"ab {tuple(ab.shape)} and weights "
+                         f"{tuple(weights.shape)} must be (B, 2, m), (B, m)")
+    ab, weights = ab.to(x0.dtype).contiguous(), weights.to(x0.dtype).contiguous()
+    if x0.device.type == "cpu":
+        return fused_lanczos_replay_plain(Lt, W, Rt, x0, weights, ab, delta)
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    y = torch.empty((B, d, chi, chi), **kw)
+    ring = torch.empty((B, 2, d, chi, chi), **kw)
+    P, w, _, bpart, alive0 = _grid_scratch(B, chi, d, M, **kw)
+    _launch_grid("tn_fused_lanczos_replay", x0.dtype, x0.device,
+                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
+                 x0.data_ptr(), weights.data_ptr(), ab.data_ptr(),
+                 y.data_ptr(), ring.data_ptr(), P.data_ptr(), w.data_ptr(),
+                 bpart.data_ptr(), alive0.data_ptr(), B, chi, d, M, m,
+                 float(delta))
+    launch_counts["fused_lanczos_replay"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K7: one matvec returning <x, H x>; the recurrence runs around it
+# ---------------------------------------------------------------------------
+
+
+def streamed_matvec_plain(Lt, C, Rt, x):
+    """Plain-PyTorch twin of :func:`streamed_matvec`: the stages of
+    :func:`heff_matvec_plain` (the couplings folded into Q[v, s] after
+    stage 1) with nt physical tiles, and <x, y>."""
+    y = heff_matvec_plain(Lt, C, Rt, x)
+    return y, _vdot(x, y)
+
+
+def streamed_matvec(Lt, C, Rt, x):
+    """One H_eff matvec with ``nt`` physical tiles and its Rayleigh
+    quotient on kernel-layout operands: Lt, Rt (B, M, chi, chi), C (M, M,
+    nt, nt) or (B, M, M, nt, nt), x (B, nt, chi, chi).  Returns ``(y (B,
+    nt, chi, chi), alpha (B,))`` with alpha = <x, y> summed in the kernel.
+    Counterpart of ``make_streamed_matvec``; its chunk counts (the TPU's
+    VMEM plan) have no meaning here."""
+    B, chi, nt, M, c_stride = _validate(Lt, C, Rt, x)
+    if x.device.type == "cpu":
+        return streamed_matvec_plain(Lt, C, Rt, x)
+    kw = dict(dtype=x.dtype, device=x.device)
+    ntl = -(-chi // _TILE)
+    Q = torch.empty((B, M * nt, chi, chi), **kw)
+    y = torch.empty_like(x)
+    part = torch.empty((B, nt * ntl * ntl), **kw)
+    alpha = torch.empty((B,), **kw)
+    _launch("tn_streamed_matvec", x.dtype, x.device,
+            C.data_ptr(), c_stride, Lt.data_ptr(), Rt.data_ptr(),
+            x.data_ptr(), Q.data_ptr(), y.data_ptr(), part.data_ptr(),
+            alpha.data_ptr(), B, chi, nt, M)
+    launch_counts["streamed_matvec"] += 1
+    return y, alpha
+
+
+def streamed_lanczos(Lt, C, Rt, xt, num_krylov_vecs: int,
+                     delta: float = 1e-8):
+    """Plain three-term Lanczos with the matvec in :func:`streamed_matvec`
+    and the recurrence in PyTorch: the ``K3=None`` branch of the JAX
+    package's ``_streamed_lanczos_core``.  Returns ``(V, ab)`` as
+    :func:`fused_lanczos` (+1e10 alpha sentinels, zeroed betas and vectors
+    on dead steps); with C as W, its plain twin is
+    :func:`fused_lanczos_plain`."""
+    _check_krylov(num_krylov_vecs)
+    return _lanczos_recurrence(lambda v: streamed_matvec(Lt, C, Rt, v), xt,
+                               num_krylov_vecs, delta)
+
+
+# ---------------------------------------------------------------------------
+# Ground-state wrappers (solver layout), one per tier
+# ---------------------------------------------------------------------------
+
+
+def _normalized(y, delta: float):
+    """Normalise kernel-layout (B, t, a, b) vectors and return them in
+    solver layout (B, a, t, b)."""
+    nrm = torch.sqrt((y * y).sum(dim=(1, 2, 3), keepdim=True))
+    return (y / torch.where(nrm > delta, nrm, 1.0)).permute(0, 2, 1, 3)
+
+
+def _ritz_pair(V, ab, ritz_method: str, power_iters: int, delta: float):
+    m = ab.shape[-1]
+    evals, weights = krylov.tridiag_ritz(ab[:, 0, :], ab[:, 1, :m - 1],
+                                         ritz_method, power_iters)
+    y = torch.einsum("Bm,Bmtab->Btab", weights.to(V.dtype), V)
+    return evals, _normalized(y, delta)
+
+
 def fused_lanczos_ground_state(L, W, R, x0, num_krylov_vecs: int,
                                ritz_method: str = "power",
                                power_iters: int = 60,
-                               delta: float = 1e-8):
-    """Batched ground-state Lanczos through :func:`fused_lanczos`.
+                               delta: float = 1e-8,
+                               two_pass: bool = False):
+    """Batched ground-state Lanczos through :func:`fused_lanczos` or, with
+    ``two_pass``, through :func:`fused_lanczos_fact` and
+    :func:`fused_lanczos_replay` (no basis stored).
 
     Solver-layout operands: L (B, a, M, c), W (M, M, d, d) or
     (B, M, M, d, d), R (B, b, M, d), x0 (B, a, t, b).  Returns ``(evals
@@ -239,10 +576,36 @@ def fused_lanczos_ground_state(L, W, R, x0, num_krylov_vecs: int,
     ``krylov.eigsh_lanczos(..., numeig=1, reorthogonalize=False)``."""
     m = num_krylov_vecs
     Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
-    V, ab = fused_lanczos(Lt, W, Rt, xt, m, delta)
+    if not two_pass:
+        V, ab = fused_lanczos(Lt, W, Rt, xt, m, delta)
+        return _ritz_pair(V, ab, ritz_method, power_iters, delta)
+    ab = fused_lanczos_fact(Lt, W, Rt, xt, m, delta)
     evals, weights = krylov.tridiag_ritz(ab[:, 0, :], ab[:, 1, :m - 1],
                                          ritz_method, power_iters)
-    y = torch.einsum("Bm,Bmtab->Btab", weights.to(V.dtype), V)
-    nrm = torch.sqrt((y * y).sum(dim=(1, 2, 3), keepdim=True))
-    y = y / torch.where(nrm > delta, nrm, 1.0)
-    return evals, y.permute(0, 2, 1, 3)
+    y = fused_lanczos_replay(Lt, W, Rt, xt, weights, ab, delta)
+    return evals, _normalized(y, delta)
+
+
+def fused_lanczos_ground_state_streamed(L, W, R, x0, num_krylov_vecs: int,
+                                        ritz_method: str = "power",
+                                        power_iters: int = 60,
+                                        delta: float = 1e-8):
+    """:func:`fused_lanczos_ground_state` through
+    :func:`fused_lanczos_streamed` (same operands and returns).  The JAX
+    package's ``n_chunks`` has no meaning on the card and is not taken."""
+    Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
+    V, ab = fused_lanczos_streamed(Lt, W, Rt, xt, num_krylov_vecs, delta)
+    return _ritz_pair(V, ab, ritz_method, power_iters, delta)
+
+
+def fused_lanczos_ground_state_streamed2(L, W, R, x0, num_krylov_vecs: int,
+                                         ritz_method: str = "eigh",
+                                         power_iters: int = 60,
+                                         delta: float = 1e-8):
+    """One-site ground-state Lanczos through :func:`streamed_lanczos`, the
+    chi=1024 tier (operands and returns of
+    :func:`fused_lanczos_ground_state`).  The JAX package's ``plan`` (its
+    VMEM chunking) has no meaning on the card and is not taken."""
+    Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
+    V, ab = streamed_lanczos(Lt, W, Rt, xt, num_krylov_vecs, delta)
+    return _ritz_pair(V, ab, ritz_method, power_iters, delta)

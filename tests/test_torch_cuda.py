@@ -95,3 +95,126 @@ def test_sweep_on_the_card_is_variational(cuda):
     e = tdmrg.FiniteDMRG(As, mpo).run_one_site(num_sweeps=3, num_krylov_vecs=8)
     assert TK.launch_counts["fused_lanczos"] > 0
     assert exact - 1e-9 <= e < exact + 1e-8
+
+
+# ---------------------------------------------------------------------------
+# The large-chi tiers: K3 (two-pass), K4 (streamed), K7 (streamed matvec)
+# ---------------------------------------------------------------------------
+
+
+def _breakdown(device, dtype, chi=8, d=2):
+    """A diagonal operator; instance 0 starts on an eigenvector (dies at
+    step 0), instance 1 from zero (dead from the start)."""
+    W = torch.eye(d, dtype=dtype, device=device).reshape(1, 1, d, d)
+    Lt = torch.diag(torch.arange(1.0, chi + 1.0, dtype=dtype, device=device))
+    Lt = Lt.reshape(1, 1, chi, chi).repeat(2, 1, 1, 1)
+    Rt = torch.eye(chi, dtype=dtype, device=device).reshape(1, 1, chi, chi)
+    Rt = Rt.repeat(2, 1, 1, 1)
+    x = torch.zeros((2, d, chi, chi), dtype=dtype, device=device)
+    x[0, 0, 0, 0] = 2.0
+    return Lt, W, Rt, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,chi", [(1, 16), (1, 80), (3, 64)])
+def test_streamed_lanczos_kernel_matches_twin_and_k2(cuda, dtype, B, chi):
+    Lt, W, Rt, xt = _operands(B, chi, 2, 3, dtype, cuda)
+    TK.reset_launch_counts()
+    V, ab = TK.fused_lanczos_streamed(Lt, W, Rt, xt, 6)
+    assert TK.launch_counts["fused_lanczos_streamed"] == 1
+    assert TK.last_grid["fused_lanczos_streamed"] > 1  # the card on B=1 too
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(Lt, W, Rt, xt, 6)
+    assert _rel(ab, ab0) < TOL[dtype][1] and _rel(V, V0) < TOL[dtype][1]
+    V2, ab2 = TK.fused_lanczos(Lt, W, Rt, xt, 6)  # K2: the same function
+    assert _rel(ab, ab2) < TOL[dtype][1] and _rel(V, V2) < TOL[dtype][1]
+    # deterministic reductions: a second launch gives the same bits
+    V3, ab3 = TK.fused_lanczos_streamed(Lt, W, Rt, xt, 6)
+    assert torch.equal(V, V3) and torch.equal(ab, ab3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chi", [16, 80])
+def test_two_pass_kernels_match_twins(cuda, dtype, chi):
+    m = 6
+    Lt, W, Rt, xt = _operands(2, chi, 2, 3, dtype, cuda)
+    TK.reset_launch_counts()
+    ab = TK.fused_lanczos_fact(Lt, W, Rt, xt, m)
+    assert TK.launch_counts["fused_lanczos_fact"] == 1
+    with highest_precision():
+        ab0 = TK.fused_lanczos_fact_plain(Lt, W, Rt, xt, m)
+    assert _rel(ab, ab0) < TOL[dtype][1]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wts = torch.randn((2, m), dtype=dtype, device=cuda, generator=g)
+    y = TK.fused_lanczos_replay(Lt, W, Rt, xt, wts, ab)
+    assert TK.launch_counts["fused_lanczos_replay"] == 1
+    with highest_precision():
+        y0 = TK.fused_lanczos_replay_plain(Lt, W, Rt, xt, wts, ab)
+    assert _rel(y, y0) < TOL[dtype][1]
+    # fact runs K4's recurrence bit for bit, and replay regenerates its
+    # basis: replay with the weights e_j returns K4's v_j exactly
+    V, ab4 = TK.fused_lanczos_streamed(Lt, W, Rt, xt, m)
+    assert torch.equal(ab, ab4)
+    for j in (0, 1, m - 1):
+        e_j = torch.zeros((2, m), dtype=dtype, device=cuda)
+        e_j[:, j] = 1.0
+        assert torch.equal(TK.fused_lanczos_replay(Lt, W, Rt, xt, e_j, ab),
+                           V[:, j])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chi,nt", [(24, 2), (80, 2), (64, 4), (40, 4)])
+def test_streamed_matvec_kernel_matches_twin(cuda, dtype, chi, nt):
+    B, M = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(chi + nt)
+    kw = dict(dtype=dtype, device=cuda, generator=g)
+    Lt, Rt = (torch.randn((B, M, chi, chi), **kw) for _ in range(2))
+    C = torch.randn((M, M, nt, nt), **kw)
+    x = torch.randn((B, nt, chi, chi), **kw)
+    TK.reset_launch_counts()
+    y, alpha = TK.streamed_matvec(Lt, C, Rt, x)
+    assert TK.launch_counts["streamed_matvec"] == 1
+    with highest_precision():
+        y0, alpha0 = TK.streamed_matvec_plain(Lt, C, Rt, x)
+        own = (x * y).sum(dim=(1, 2, 3))
+    assert _rel(y, y0) < TOL[dtype][0]
+    scale = float(x.norm() * y0.norm())  # alpha may cancel
+    assert float((alpha - alpha0).abs().max()) < TOL[dtype][0] * scale
+    # alpha is <x, y> of the kernel's own y
+    assert float((alpha - own).abs().max()) < TOL[dtype][0] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_large_chi_kernels_breakdown(cuda, dtype):
+    Lt, W, Rt, x = _breakdown(cuda, dtype)
+    m = 4
+    V, ab = TK.fused_lanczos_streamed(Lt, W, Rt, x, m)
+    V0, ab0 = TK.fused_lanczos_plain(Lt, W, Rt, x, m)
+    assert torch.equal(V, V0) and torch.equal(ab, ab0)
+    assert float(ab[0, 0, 0]) == 1.0 and bool((ab[0, 0, 1:] == 1e10).all())
+    assert bool((ab[1, 0] == 1e10).all()) and bool((ab[:, 1] == 0).all())
+    assert bool((V[0, 1:] == 0).all()) and bool((V[1] == 0).all())
+    assert torch.equal(TK.fused_lanczos_fact(Lt, W, Rt, x, m), ab0)
+    wts = torch.ones((2, m), dtype=dtype, device=cuda)
+    y = TK.fused_lanczos_replay(Lt, W, Rt, x, wts, ab0)
+    assert torch.equal(y, TK.fused_lanczos_replay_plain(Lt, W, Rt, x, wts, ab0))
+    assert torch.equal(y[0], x[0] / 2) and bool((y[1] == 0).all())
+    Vs, abs_ = TK.streamed_lanczos(Lt, W, Rt, x, m)
+    assert torch.equal(Vs, V0) and torch.equal(abs_, ab0)
+
+
+@pytest.mark.parametrize("tier", ["two_pass", "streamed", "streamed_matvec"])
+def test_sweep_through_each_tier_is_variational(cuda, monkeypatch, tier):
+    N, chi = 8, 8
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64, device=cuda)
+    exact = np.linalg.eigvalsh(tmpo.mpo_to_dense(mpo))[0]
+    As = tdmrg.random_mps_stack(0, N, chi, 2, dtype=torch.float64, device=cuda)
+    monkeypatch.setattr(TK, "one_site_tier", lambda *a: tier)
+    TK.reset_launch_counts()
+    e = tdmrg.FiniteDMRG(As, mpo).run_one_site(num_sweeps=3, num_krylov_vecs=8)
+    kernels = {"two_pass": ("fused_lanczos_fact", "fused_lanczos_replay"),
+               "streamed": ("fused_lanczos_streamed",),
+               "streamed_matvec": ("streamed_matvec",)}[tier]
+    assert all(TK.launch_counts[k] > 0 for k in kernels)
+    assert TK.launch_counts["fused_lanczos"] == 0
+    assert exact - 1e-9 <= e < exact + 1e-8

@@ -1,4 +1,5 @@
 """The port stands alone: no JAX, and no silent fall back to the CPU."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +29,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    # chip_smoke.py drives the port on the card, where JAX is not installed
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert "tensornetwork_tpu_torch" in {m.split(".")[0] for m in names}
+    assert not [m for m in names
+                if m.split(".")[0] in ("jax", "jaxlib", "tensornetwork_tpu")]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -73,5 +86,7 @@ def test_kernel_build_key_covers_every_source():
 
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file()
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == set(_build.HEADERS)
     assert len(_build.build_key()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
