@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch twin at the shapes its path gives it, and runs the paths -- one-site
-DMRG of the transverse-field Ising chain, N=32, d=2, M=3, m=10 Krylov
-vectors, f32: at chi=64 single instance and a batch of 256 (resident
-tier), and single instance at chi=384, 512 and 1024 (two-pass, streamed
-and streamed-matvec tiers) -- and checks the energies against the
-converged reference and a small chain against exact diagonalisation.
+PyTorch twin at the shapes its path gives it, and runs the paths of DMRG
+on the transverse-field Ising chain, N=32, d=2, M=3, f32 -- one-site (m=10
+Krylov vectors) at chi=64 single instance and a batch of 256 (resident
+tier), single instance at chi=384, 512, 1024 and 2048 (two-pass, streamed,
+streamed-matvec and XL streamed-matvec tiers); two-site (m=6, subspace
+truncation) on a batch of 256 at chi=64 (resident tier, nt=4) and single
+instance at chi=512 and 1024 (streamed-matvec and XL tiers) -- and checks
+the energies against the converged reference and a small chain against
+exact diagonalisation.
 Every phase prints one JSON line; a failed check exits non-zero.  Needs
 one CUDA card and nvcc; without a card it exits 1 before printing any
 result.  The last line is
@@ -26,16 +29,30 @@ import numpy as np
 REFERENCE_ENERGY = -40.384313161218365  # TFI N=32 chi=64, converged
 N, CHI, D, M, KRYLOV, BATCH = 32, 64, 2, 3, 10, 256
 SINGLE_SWEEPS, BATCH_SWEEPS = 8, 8
-# The large-chi paths: (chi, the tier the router must take, sweeps).
+# The large-chi one-site paths: (chi, the tier the router must take,
+# sweeps from a random state).
 LARGE_CHI = ((384, "two_pass", 4), (512, "streamed", 4),
-             (1024, "streamed_matvec", 3))
+             (1024, "streamed_matvec", 3), (2048, "streamed_matvec_xl", 3))
 # Kernel launches per large-chi sweep: every site is solved twice.
 TIER_LAUNCHES = {
     "two_pass": {"fused_lanczos_fact": 2 * N, "fused_lanczos_replay": 2 * N},
     "streamed": {"fused_lanczos_streamed": 2 * N},
-    "streamed_matvec": {"streamed_matvec": 2 * N * KRYLOV}}
+    "streamed_matvec": {"streamed_matvec": 2 * N * KRYLOV},
+    "streamed_matvec_xl": {"streamed_matvec_xl": 2 * N * KRYLOV}}
 TIER_CHI = {tier: chi for chi, tier, _ in LARGE_CHI}
-NT4_CHI = 256  # K7 at nt=4 (the two-site tile count), correctness only
+NT4_CHI = 512  # K7 at nt=4: the two-site chi=512 path shape
+# Two-site DMRG, the JAX package's settings: m=6 Krylov vectors, bonds
+# truncated by 2 warm-started subspace iterations with the polar
+# orthonormaliser.  Batched: B=256 at chi=64 (resident tier, K2 at nt=4).
+# Single instance: (chi, the tier two_site_tier must take, sweeps).
+KRYLOV_2S, TRUNC_2S = 6, dict(trunc_impl="subspace", trunc_iters=2,
+                              trunc_orth="polar")
+BATCH_SWEEPS_2S = 8
+LARGE_2S = ((512, "streamed_matvec", 3), (1024, "streamed_matvec_xl", 3))
+# Kernel launches per two-site sweep: every bond is solved twice.
+TIER_LAUNCHES_2S = {tier: {tier: 2 * (N - 1) * KRYLOV_2S}
+                    for tier in ("streamed_matvec", "streamed_matvec_xl")}
+XL_CHI_2S = 1024   # K8's two-site path shape (nt=4); one-site: TIER_CHI
 DEV = "cuda"
 # Accepted window of E - REFERENCE_ENERGY, where E is the energy of the
 # returned f32 state evaluated in f64 (<psi|H|psi>/<psi|psi>).  The sweep's
@@ -49,6 +66,12 @@ DE_LO, DE_HI = -1e-5, 1e-4
 # sat 8e-4 to 4e-3 above; 1e-6 keeps a 50x margin and fails a state that
 # stalls.
 DE_LARGE_HI = 1e-6
+# The two-site single-instance states, 3 sweeps from a random state with
+# the 2-iteration subspace truncation, ended at +4.3e-6 (chi=512) and
+# +1.1e-5 (chi=1024) on an H100 80GB HBM3 at 700 W, not at the one-site
+# tiers' 1e-8 class; a 50x margin would exceed the chi=64 window, so they
+# keep it: [DE_LO, DE_HI].
+DE_2S_HI = DE_HI
 # fp32 kernel against its fp32 twin: the same products summed in other
 # orders, a few ulp of 768-term sums; 1e-4 relative leaves headroom and
 # still catches a TF32 product (~1e-3).
@@ -352,9 +375,9 @@ def k4_phase(torch):
 
 
 def k7_phase(torch):
-    """K7, the streamed matvec, at the chi=1024 path's shapes (nt=2), and
-    at nt=4, chi=256 for correctness; the breakdown through the
-    recurrence around it."""
+    """K7, the streamed matvec, at the one-site chi=1024 path's shapes
+    (nt=2) and at the two-site chi=512 path's (nt=4); the breakdown
+    through the recurrence around it."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     chi = TIER_CHI["streamed_matvec"]
@@ -378,7 +401,7 @@ def k7_phase(torch):
         lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x), 10)
         lib_err = max_rel(K.finalize_output(y), K.heff_matvec_reference(L, W, R, x))
 
-        # nt=4 (the two-site tile count) at chi=256, correctness only
+        # nt=4, the two-site chi=512 path's shape
         g = torch.Generator(device=DEV).manual_seed(8)
         kw = dict(device=DEV, generator=g)
         L4, R4 = (torch.randn((1, M, NT4_CHI, NT4_CHI), **kw) / NT4_CHI ** 0.5
@@ -389,6 +412,7 @@ def k7_phase(torch):
         y40, a40 = K.streamed_matvec_plain(L4, C4, R4, x4)
         rel4 = max(max_rel(y4, y40),
                    float((a4 - a40).abs().max() / (x4.norm() * y40.norm())))
+        nt4_ms = cuda_ms(torch, lambda: K.streamed_matvec(L4, C4, R4, x4), 10)
 
         Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
         Vd, abd = K.streamed_lanczos(Ld, Wd, Rd, xd, KRYLOV)
@@ -398,7 +422,8 @@ def k7_phase(torch):
     bound_ms, bound_by = bound(*matvec_work(1, chi, D, M))
     emit(phase="k7_streamed_matvec", shape=[1, chi, D, M], max_rel_err=rel,
          alpha_rel_err=rel_alpha, alpha_vs_own_y=own_alpha, max_abs_err=err,
-         einsum_rel_err=lib_err, nt4_chi256_rel_err=rel4,
+         einsum_rel_err=lib_err, nt4_rel_err=rel4, nt4_chi=NT4_CHI,
+         nt4_ms=nt4_ms, nt4_bound_ms=bound(*matvec_work(1, NT4_CHI, 4, M))[0],
          breakdown_sentinels=sentinels, breakdown_equals_twin=same, ms=ms,
          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
          bound_by=bound_by)
@@ -407,7 +432,106 @@ def k7_phase(torch):
           f"alpha vs its y {own_alpha}, nt=4 {rel4}")
     check(sentinels and same, "K7 breakdown sentinels wrong")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms), nt4_ms
+
+
+def k8_phase(torch):
+    """K8, the XL streamed matvec, at both of its path shapes -- two-site
+    chi=1024 (nt=4) and one-site chi=2048 (nt=2), B=1 -- for K3 = 1, the
+    wrapper's pick and 4, against its twin; timed beside K7 on the same
+    operands, the twin and one torch.einsum of the matvec.  Then the
+    breakdown through the recurrence around it."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    out, ret = {}, None
+    for label, chi, nt in (("two_site", XL_CHI_2S, D * D),
+                           ("one_site", TIER_CHI["streamed_matvec_xl"], D)):
+        (L, W, R, x), (Lt, C, Rt, xt) = hermitian_operands(
+            torch, 1, chi, nt, M, seed=chi + nt)
+        pick = K.xl_chunk_count(chi, 1, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        errs = {}
+        with highest_precision():
+            for K3 in sorted({1, pick, 4}):
+                y, alpha = K.streamed_matvec_xl(Lt, C, Rt, xt, K3=K3)
+                y0, alpha0 = K.streamed_matvec_xl_plain(Lt, C, Rt, xt, K3)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(y).all() and torch.isfinite(alpha).all()),
+                      f"K8 ({label}, K3={K3}) output not finite")
+                scale = float(xt.norm() * y0.norm())  # alpha may cancel
+                errs[K3] = dict(
+                    y_rel=max_rel(y, y0),
+                    alpha_rel=float((alpha - alpha0).abs().max()) / scale,
+                    alpha_vs_own_y=float((alpha - (xt * y).sum()).abs().max())
+                    / scale,
+                    max_abs_err=max(float((y - y0).abs().max()),
+                                    float((alpha - alpha0).abs().max())))
+                del y, y0
+            ms = cuda_ms(torch, lambda: K.streamed_matvec_xl(Lt, C, Rt, xt), 10)
+            k7_ms = cuda_ms(torch, lambda: K.streamed_matvec(Lt, C, Rt, xt), 10)
+            plain_ms = cuda_ms(torch, lambda: K.streamed_matvec_xl_plain(
+                Lt, C, Rt, xt, pick), 5)
+            lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x),
+                             5)
+        bound_ms, bound_by = bound(*matvec_work(1, chi, nt, M))
+        flops = matvec_work(1, chi, nt, M)[0]
+        emit(phase="k8_streamed_matvec_xl", path=label, shape=[1, chi, nt, M],
+             k3_pick=pick, errors=errs, ms=ms, k7_ms=k7_ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+             tflops_per_s=flops / ms / 1e9)
+        worst = max(max(e["y_rel"], e["alpha_rel"], e["alpha_vs_own_y"])
+                    for e in errs.values())
+        check(worst <= KERNEL_RTOL,
+              f"K8 ({label}) disagrees with its twin: {errs}")
+        out[label] = ms
+        if label == "two_site":
+            ret = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=lib_ms)
+        del L, W, R, x, Lt, C, Rt, xt
+        torch.cuda.empty_cache()
+
+    with highest_precision():
+        Ld, Wd, Rd, xd = breakdown_operands(torch, 2, XL_CHI_2S)
+        Vd, abd = K.streamed_lanczos(Ld, Wd, Rd, xd, KRYLOV,
+                                     matvec=K.streamed_matvec_xl)
+        Vd0, abd0 = K.fused_lanczos_plain(Ld, Wd, Rd, xd, KRYLOV)
+    sentinels = breakdown_sentinels(abd, Vd)
+    same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
+    emit(phase="k8_breakdown", chi=XL_CHI_2S, breakdown_sentinels=sentinels,
+         breakdown_equals_twin=same)
+    check(sentinels and same, "K8 breakdown sentinels wrong")
+    return ret, out
+
+
+def k2_nt4_phase(torch):
+    """K2 with nt=4 physical tiles, the two-site resident tier: B=256,
+    chi=64, m=6, against its twin."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    nt = D * D
+    _, (Lt, C, Rt, xt) = hermitian_operands(torch, BATCH, CHI, nt, M, seed=24)
+    with highest_precision():
+        V, ab = K.fused_lanczos(Lt, C, Rt, xt, KRYLOV_2S)
+        V0, ab0 = K.fused_lanczos_plain(Lt, C, Rt, xt, KRYLOV_2S)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(V).all() and torch.isfinite(ab).all()),
+              "K2 (nt=4) output not finite")
+        rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
+        ms = cuda_ms(torch, lambda: K.fused_lanczos(Lt, C, Rt, xt, KRYLOV_2S), 5)
+        plain_ms = cuda_ms(torch, lambda: K.fused_lanczos_plain(
+            Lt, C, Rt, xt, KRYLOV_2S), 3)
+    flops, _ = matvec_work(BATCH, CHI, nt, M)
+    flops = KRYLOV_2S * (flops + 10 * BATCH * nt * CHI * CHI)
+    nbytes = 4 * (BATCH * ((2 * M + nt + KRYLOV_2S * nt) * CHI ** 2
+                           + 2 * KRYLOV_2S) + M * M * nt * nt)
+    bound_ms, bound_by = bound(flops, nbytes)
+    emit(phase="k2_fused_lanczos_nt4", shape=[BATCH, CHI, nt, M, KRYLOV_2S],
+         max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, gflops_per_s=flops / ms / 1e6)
+    check(rel_ab <= KERNEL_RTOL and rel_V <= KERNEL_RTOL,
+          f"K2 (nt=4) disagrees with its twin: ab {rel_ab}, V {rel_V}")
+    return ms
 
 
 def state_delta_e(torch, As, mpo64):
@@ -521,21 +645,142 @@ def host_share_phase(torch, As, renvs, mpo, sweep_s, k2_ms):
          profile_seconds=time.perf_counter() - t0)
 
 
+def two_site_batched_phase(torch, k2_ms):
+    """Two-site sweeps of B=256 TFI N=32 chains at chi=64 with the batched
+    defaults (polar gauge, power Ritz, K2 at nt=4, subspace truncation),
+    chained from random states; one more sweep is traced for the device's
+    busy time.  ``k2_ms``: K2's time at this shape (k2_nt4_phase)."""
+    from tensornetwork_tpu_torch import FiniteTFI, batched_two_site_sweep
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.ops import kernels as K
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    As = random_mps_stack(2, BATCH * N, CHI, D, dtype=torch.float32).reshape(
+        BATCH, N, CHI, D, CHI)
+
+    def sweep(As, renvs):
+        return batched_two_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
+                                      num_krylov_vecs=KRYLOV_2S, renvs=renvs,
+                                      **TRUNC_2S)
+
+    renvs, times, per_sweep, terr = None, [], [], []
+    for _ in range(BATCH_SWEEPS_2S):
+        before = K.launch_counts["fused_lanczos"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(As, renvs)
+        energy = res.energy.cpu().numpy()   # synchronises
+        times.append(time.perf_counter() - t0)
+        per_sweep.append(K.launch_counts["fused_lanczos"] - before)
+        terr.append(float(res.trunc_err.max()))
+        As, renvs = res.As, res.renvs
+    check(bool(torch.isfinite(As).all()) and res.energies.shape == (BATCH, N - 1),
+          "two-site batched state not finite or misshapen")
+    check(all(c == 2 * (N - 1) for c in per_sweep),
+          f"K2 launches per two-site sweep {per_sweep}, expected {2 * (N - 1)}")
+    ritz = energy.astype(np.float64) - REFERENCE_ENERGY
+    de = np.array([state_delta_e(torch, a, mpo64) for a in As])
+    sweep_s = statistics.median(times[1:])
+    busy_ms = device_busy_ms(torch, lambda: sweep(As, renvs))
+    emit(phase="two_site_batched", batch=BATCH, chi=CHI, sweeps=BATCH_SWEEPS_2S,
+         delta_E_median=float(np.median(de)), delta_E_min=float(de.min()),
+         delta_E_max=float(de.max()),
+         instances_in_window=int(np.sum((de >= DE_LO) & (de <= DE_HI))),
+         ritz_delta_E_median=float(np.median(ritz)),
+         trunc_err_max_per_sweep=terr,
+         instance_sweeps_per_s=BATCH / sweep_s, sweep_s=times,
+         device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / (1e3 * sweep_s),
+         k2_share=2 * (N - 1) * k2_ms / (1e3 * sweep_s),
+         k2_launches_per_sweep=per_sweep)
+    check(bool(np.all((de >= DE_LO) & (de <= DE_HI))),
+          f"two-site batched delta E in [{de.min()}, {de.max()}], outside "
+          "window")
+
+
+def two_site_large_phase(torch, chi, tier, sweeps, matvec_ms):
+    """Two-site sweeps of one TFI N=32 chain at bond dimension chi through
+    the tier two_site_tier picks, from a random state.  The launch counts
+    are set to 0 just before and read just after; returns them.
+    ``matvec_ms``: the tier's kernel time of one matvec at this shape."""
+    from tensornetwork_tpu_torch import FiniteTFI, two_site_sweep
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.ops import kernels as K
+    taken = K.two_site_tier(chi, D, M, KRYLOV_2S)
+    check(taken == tier, f"two-site chi={chi}: the router takes {taken}, "
+          f"not {tier}")
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    As = random_mps_stack(chi + 1, N, chi, D, dtype=torch.float32)
+
+    def sweep(As, renvs):
+        return two_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
+                              num_krylov_vecs=KRYLOV_2S, renvs=renvs,
+                              **TRUNC_2S)
+
+    renvs, times, energies, terr, per_sweep = None, [], [], [], []
+    K.reset_launch_counts()
+    for _ in range(sweeps):
+        before = dict(K.launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(As, renvs)
+        energies.append(float(res.energy))   # synchronises
+        times.append(time.perf_counter() - t0)
+        per_sweep.append({k: K.launch_counts[k] - before[k]
+                          for k in K.launch_counts if K.launch_counts[k] - before[k]})
+        terr.append(float(res.trunc_err))
+        As, renvs = res.As, res.renvs
+    launches = dict(K.launch_counts)
+    check(bool(torch.isfinite(As).all()) and As.shape == (N, chi, D, chi),
+          f"two-site chi={chi}: state not finite or misshapen")
+    de = state_delta_e(torch, As, mpo64)
+    sweep_s = statistics.median(times[1:])
+    busy_ms = device_busy_ms(torch, lambda: sweep(As, renvs))
+    matvecs = 2 * (N - 1) * KRYLOV_2S
+    emit(phase="two_site_large", chi=chi, tier=tier, sweeps=sweeps,
+         delta_E=de, ritz_delta_E_per_sweep=[e - REFERENCE_ENERGY
+                                             for e in energies],
+         trunc_err_per_sweep=terr, sweeps_per_s=1 / sweep_s,
+         first_sweep_s=times[0], sweep_s=times,
+         matvec_tflops_per_s=matvecs * matvec_work(1, chi, D * D, M)[0]
+         / sweep_s / 1e12,
+         kernel_share=matvecs * matvec_ms / (1e3 * sweep_s),
+         device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / (1e3 * sweep_s),
+         launches_per_sweep=per_sweep)
+    check(all(c == TIER_LAUNCHES_2S[tier] for c in per_sweep),
+          f"two-site chi={chi}: launches per sweep {per_sweep}, expected "
+          f"{TIER_LAUNCHES_2S[tier]}")
+    check(DE_LO <= de <= DE_2S_HI,
+          f"two-site chi={chi}: delta E {de} outside [{DE_LO}, {DE_2S_HI}]")
+    del As, renvs, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 def variational_phase(torch):
     from tensornetwork_tpu_torch import FiniteDMRG, FiniteTFI, mpo_to_dense
-    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.models.dmrg import (mps_mpo_expectation,
+                                                     random_mps_stack)
     n, chi = 10, 16
     mpo64 = FiniteTFI(1.0, 1.0, N=n, dtype=torch.float64)
     dense = torch.as_tensor(mpo_to_dense(mpo64), device=mpo64.Ws.device)
     exact = float(torch.linalg.eigvalsh(dense)[0])
     for dtype, tol in ((torch.float32, 5e-5), (torch.float64, 1e-9)):
         mpo = FiniteTFI(1.0, 1.0, N=n, dtype=dtype)
-        dm = FiniteDMRG(random_mps_stack(5, n, chi, D, dtype=dtype), mpo)
-        e = dm.run_one_site(num_sweeps=4, num_krylov_vecs=KRYLOV, tol=0.0)
-        emit(phase="variational", N=n, chi=chi, dtype=str(dtype), E=e,
-             exact=exact, delta=e - exact)
-        check(e >= exact - tol and abs(e - exact) < tol,
-              f"N={n} {dtype}: E {e} vs exact {exact}")
+        for run in ("run_one_site", "run_two_site"):
+            dm = FiniteDMRG(random_mps_stack(5, n, chi, D, dtype=dtype), mpo)
+            e = getattr(dm, run)(num_sweeps=4, num_krylov_vecs=KRYLOV, tol=0.0)
+            state = float(mps_mpo_expectation(dm.As.double(), mpo64.Ws,
+                                              mpo64.vL, mpo64.vR))
+            emit(phase="variational", run=run, N=n, chi=chi, dtype=str(dtype),
+                 E=e, exact=exact, delta=e - exact,
+                 state_delta_f64=state - exact)
+            check(e >= exact - tol and abs(e - exact) < tol
+                  and state >= exact - tol and abs(state - exact) < tol,
+                  f"N={n} {dtype} {run}: E {e}, state {state} vs exact "
+                  f"{exact}")
 
 
 def large_chi_phase(torch, chi, tier, sweeps, solve_ms):
@@ -595,7 +840,8 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("fused_lanczos", "fused_lanczos.cu", "kernels.py:138"),
     ("fused_lanczos_2pass", "fused_lanczos_2pass.cu", "kernels.py:278"),
     ("fused_lanczos_streamed", "fused_lanczos_streamed.cu", "kernels.py:437"),
-    ("streamed_matvec", "streamed_matvec.cu", "kernels.py:1257"))
+    ("streamed_matvec", "streamed_matvec.cu", "kernels.py:1257"),
+    ("streamed_matvec_xl", "streamed_matvec_xl.cu", "kernels.py:1380"))
 
 
 def main():
@@ -607,8 +853,10 @@ def main():
     build_phase()
     meas = {"heff_matvec": k1_phase(torch), "fused_lanczos": k2_phase(torch),
             "fused_lanczos_2pass": k3_phase(torch),
-            "fused_lanczos_streamed": k4_phase(torch),
-            "streamed_matvec": k7_phase(torch)}
+            "fused_lanczos_streamed": k4_phase(torch)}
+    meas["streamed_matvec"], k7_nt4_ms = k7_phase(torch)
+    meas["streamed_matvec_xl"], k8_ms = k8_phase(torch)
+    k2_nt4_ms = k2_nt4_phase(torch)
 
     # the chi=64 path: every count at 0 just before, read just after
     K.reset_launch_counts()
@@ -624,14 +872,30 @@ def main():
     torch.cuda.empty_cache()
     variational_phase(torch)
 
+    # the two-site batched path, with its own counts
+    K.reset_launch_counts()
+    two_site_batched_phase(torch, k2_nt4_ms)
+    counts = dict(K.launch_counts)
+    emit(phase="two_site_batched_launches", chi=CHI, **counts)
+    check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
+    launches["fused_lanczos"] += counts["fused_lanczos"]
+
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],
                 "streamed": meas["fused_lanczos_streamed"]["ms"],
-                "streamed_matvec": KRYLOV * meas["streamed_matvec"]["ms"]}
+                "streamed_matvec": KRYLOV * meas["streamed_matvec"]["ms"],
+                "streamed_matvec_xl": KRYLOV * k8_ms["one_site"]}
+    matvec_2s_ms = {"streamed_matvec": k7_nt4_ms,
+                    "streamed_matvec_xl": k8_ms["two_site"]}
+    launches["streamed_matvec_xl"] = 0
+    for chi, tier, sweeps in LARGE_2S:
+        counts = two_site_large_phase(torch, chi, tier, sweeps,
+                                      matvec_2s_ms[tier])
+        launches[tier] += counts[tier]
     for chi, tier, sweeps in LARGE_CHI:
         counts = large_chi_phase(torch, chi, tier, sweeps, solve_ms[tier])
         for name in TIER_LAUNCHES[tier]:
-            launches[name] = counts[name]
+            launches[name] = launches.get(name, 0) + counts[name]
     launches["fused_lanczos_2pass"] = (launches.pop("fused_lanczos_fact")
                                        + launches.pop("fused_lanczos_replay"))
 

@@ -1,6 +1,7 @@
 // Device code shared by the H_eff matvec kernel (heff_matvec.cu), the fused
 // Lanczos kernel (fused_lanczos.cu), the grid-wide Lanczos kernels
-// (lanczos_grid.cuh) and the streamed matvec (streamed_matvec.cu).
+// (lanczos_grid.cuh) and the streamed matvecs (streamed_matvec.cu,
+// streamed_matvec_xl.cu).
 //
 // Index conventions (kernel layout, see ops/kernels.py prepare_operands):
 //   Lt[w][c][a]   W[w][v][s][t]   Rt[v][b][d]   x[t][a][b]   ->  y[s][c][d]
@@ -231,6 +232,47 @@ __device__ T block_sum(T v, Smem<T>& sm) {
   }
   __syncthreads();
   return sm.red[32];
+}
+
+// Q_tile (+)= c * acc over this thread's outputs (masked); `first`
+// overwrites.  Each thread reads and writes only its own outputs, so the
+// callers need no barrier around it.
+template <typename T>
+__device__ void fold_tile(const T (&acc)[SUB][SUB], T c, T* Q, int chi,
+                          int r0, int c0, bool first) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < SUB; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= chi) continue;
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col >= chi) continue;
+      T* q = Q + (size_t)r * chi + col;
+      *q = first ? c * acc[i][j] : *q + c * acc[i][j];
+    }
+  }
+}
+
+// sum of p[0:n] in a fixed order (thread i takes i, i+256, ..., then the
+// fixed block tree); every block gets the same bits
+template <typename T>
+__device__ T ordered_sum(const T* p, int n, Smem<T>& sm) {
+  T s = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s += p[i];
+  return block_sum(s, sm);
+}
+
+// out[b] = the n slots part[b*n ... b*n+n-1] summed in a fixed order, one
+// block per instance: the last launch of the streamed matvecs, which turns
+// the per-tile <x, y> shares into alpha without float atomics.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ordered_sum_kernel(const T* part, int n, T* out) {
+  __shared__ Smem<T> sm;
+  const T s = ordered_sum(part + (size_t)blockIdx.x * n, n, sm);
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
 }  // namespace heff

@@ -79,15 +79,6 @@ __device__ __forceinline__ T lanczos_update(T w, T v, T vp, T alpha,
   return fma_rn(-beta_prev, vp, fma_rn(-alpha, v, w));
 }
 
-// sum of p[0:n] in a fixed order (thread i takes i, i+256, ..., then the
-// fixed block tree); every block gets the same bits
-template <typename T>
-__device__ T ordered_sum(const T* p, int n, heff::Smem<T>& sm) {
-  T s = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s += p[i];
-  return heff::block_sum(s, sm);
-}
-
 template <typename T, int MODE>
 __global__ void __launch_bounds__(heff::THREADS)
     lanczos_grid_kernel(Args<T> a) {
@@ -124,7 +115,8 @@ __global__ void __launch_bounds__(heff::THREADS)
   grid.sync();
   for (int job = bid; job < a.B * nseg; job += nb) {
     const int b = job / nseg, s = job % nseg;
-    const T nrm = sqrt(ordered_sum(a.bpart + (size_t)b * nseg, nseg, sm));
+    const T nrm =
+        sqrt(heff::ordered_sum(a.bpart + (size_t)b * nseg, nseg, sm));
     const bool alive = nrm > a.delta;
     const T inv = alive ? T(1) / nrm : T(0);
     const T* x = a.x0 + b * n;
@@ -192,7 +184,8 @@ __global__ void __launch_bounds__(heff::THREADS)
           vn[e] = we * inv;
         }
       } else {
-        const T alpha = ordered_sum(a.apart + (size_t)b * jobs2, jobs2, sm);
+        const T alpha =
+            heff::ordered_sum(a.apart + (size_t)b * jobs2, jobs2, sm);
         const bool alive = j == 0 ? a.alive0[b] != T(0) : beta_prev != T(0);
         T part = T(0);
         for (int k = 0; k < PER_THREAD; ++k) {
@@ -216,7 +209,8 @@ __global__ void __launch_bounds__(heff::THREADS)
     for (int job = bid; job < a.B * nseg; job += nb) {
       const int b = job / nseg, s = job % nseg;
       T* ab = a.ab + (size_t)b * 2 * m;
-      const T beta = sqrt(ordered_sum(a.bpart + (size_t)b * nseg, nseg, sm));
+      const T beta =
+          sqrt(heff::ordered_sum(a.bpart + (size_t)b * nseg, nseg, sm));
       const bool alive = j == 0 ? a.alive0[b] != T(0) : ab[m + j - 1] != T(0);
       const bool alive_next = alive && beta > a.delta;
       const T inv = beta > a.delta ? T(1) / beta : T(0);

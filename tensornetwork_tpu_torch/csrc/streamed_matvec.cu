@@ -29,26 +29,6 @@
 
 namespace {
 
-// Q_tile (+)= c * acc over this thread's outputs (masked); `first`
-// overwrites.
-template <typename T>
-__device__ void fold_tile(const T (&acc)[heff::SUB][heff::SUB], T c, T* Q,
-                          int chi, int r0, int c0, bool first) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < heff::SUB; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= chi) continue;
-#pragma unroll
-    for (int j = 0; j < heff::SUB; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col >= chi) continue;
-      T* q = Q + (size_t)r * chi + col;
-      *q = first ? c * acc[i][j] : *q + c * acc[i][j];
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(heff::THREADS)
     fold_stage_kernel(const T* __restrict__ C, long long c_stride,
@@ -79,7 +59,8 @@ __global__ void __launch_bounds__(heff::THREADS)
         for (int s = 0; s < nt; ++s) {
           const T c = sm.wc[((w * M + v) * nt + s) * nt + t];
           if (first || c != T(0))  // uniform across the block
-            fold_tile(acc, c, Q + (v * nt + s) * plane, chi, r0, c0, first);
+            heff::fold_tile(acc, c, Q + (v * nt + s) * plane, chi, r0, c0,
+                            first);
         }
     }
 }
@@ -111,18 +92,6 @@ __global__ void __launch_bounds__(heff::THREADS)
   if (threadIdx.x == 0) part[b * gridDim.x + blockIdx.x] = p;
 }
 
-// alpha[b] = the slots of instance b summed in a fixed order
-template <typename T>
-__global__ void __launch_bounds__(heff::THREADS)
-    alpha_kernel(const T* __restrict__ part, int n, T* __restrict__ alpha) {
-  __shared__ heff::Smem<T> sm;
-  const T* p = part + (size_t)blockIdx.x * n;
-  T s = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s += p[i];
-  s = heff::block_sum(s, sm);
-  if (threadIdx.x == 0) alpha[blockIdx.x] = s;
-}
-
 template <typename T>
 int launch(const T* C, long long c_stride, const T* Lt, const T* Rt,
            const T* x, T* Q, T* y, T* part, T* alpha, int B, int chi,
@@ -136,8 +105,8 @@ int launch(const T* C, long long c_stride, const T* Lt, const T* Rt,
                          stream>>>(Q, Rt, x, y, part, chi, nt, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  alpha_kernel<T><<<B, heff::THREADS, 0, stream>>>(part, nt * ntl * ntl,
-                                                   alpha);
+  heff::ordered_sum_kernel<T><<<B, heff::THREADS, 0, stream>>>(
+      part, nt * ntl * ntl, alpha);
   return (int)cudaGetLastError();
 }
 

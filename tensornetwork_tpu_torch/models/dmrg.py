@@ -1,6 +1,6 @@
-"""One-site DMRG ground-state search.
+"""One- and two-site DMRG ground-state search.
 
-Counterpart of the one-site part of :mod:`tensornetwork_tpu.models.dmrg`.
+Counterpart of :mod:`tensornetwork_tpu.models.dmrg`.
 The MPS is a uniform stack ``(N, chi, d, chi)`` with trace (identity)
 boundary environments, as in the JAX package.  Where JAX runs a sweep as
 one ``lax.scan`` and batches it with ``vmap``, the port runs a Python loop
@@ -8,8 +8,11 @@ over the sites on tensors with a leading batch dimension: the single
 instance is a batch of one, and the batch rides the fused-Lanczos
 kernel's grid (:mod:`tensornetwork_tpu_torch.parallel.batch`).  The fused
 local solve takes the kernel tier that
-:func:`~tensornetwork_tpu_torch.ops.kernels.one_site_tier` picks for the
-bond dimension, as the JAX package does.
+:func:`~tensornetwork_tpu_torch.ops.kernels.one_site_tier` (or
+``two_site_tier``) picks for the bond dimension, as the JAX package does.
+The two-site sweep truncates each bond back to the static ``chi`` by the
+masked SVD or the matmul-only subspace iteration and accumulates the
+discarded weight.
 
 Conventions:
   A[l, s, r]        ket site tensor
@@ -35,9 +38,16 @@ from tensornetwork_tpu_torch.ops import decompositions, kernels, krylov
 # Single-instance defaults, the JAX package's off-TPU ones; the local
 # solve defaults to the fused kernel, as the JAX package does on its
 # accelerator.
-QR_IMPL = "householder"   # "householder" | "polar"
+QR_IMPL = "householder"   # "householder" | "cholesky" | "polar"
 RITZ_IMPL = "eigh"        # "eigh" | "power"
 LANCZOS_IMPL = "fused"    # "fused" | "plain" (the JAX package's "xla")
+# Two-site bond truncation, the JAX package's module defaults: the exact
+# masked SVD; "subspace" is the warm-started subspace iteration with
+# TRUNC_ITERS steps orthonormalised by TRUNC_ORTH ("qr" | "polar" |
+# "polar+qr" | "cholqr2"), the batched route's choice.
+TRUNC_IMPL = "svd"        # "svd" | "subspace"
+TRUNC_ITERS = 4
+TRUNC_ORTH = "qr"
 
 
 def _ws(W) -> str:
@@ -65,6 +75,15 @@ def _matvec_1s(L, W, R, x):
     return torch.einsum("Bcbvs,Bbvd->Bcsd", Y, R)
 
 
+def _matvec_2s(L, W1, W2, R, x):
+    """y[c,s,u,d] = L[a,w,c] W1[w,m,s,t] W2[m,v,u,z] x[a,t,z,b] R[b,v,d]."""
+    b = "" if W1.dim() == 4 else "B"
+    X = torch.einsum("Bawc,Batzb->Bwctzb", L, x)
+    X = torch.einsum(f"Bwctzb,{b}wmst->Bcmszb", X, W1)
+    X = torch.einsum(f"Bcmszb,{b}mvuz->Bcsubv", X, W2)
+    return torch.einsum("Bcsubv,Bbvd->Bcsud", X, R)
+
+
 def _boundary_left(B: int, chi: int, vL):
     eye = torch.eye(chi, dtype=vL.dtype, device=vL.device)
     return torch.einsum("ac,w->awc", eye, vL).expand(B, -1, -1, -1)
@@ -76,7 +95,10 @@ def _boundary_right(B: int, chi: int, vR):
 
 
 def _normalize(A):
-    nrm = torch.linalg.vector_norm(A, dim=(1, 2, 3), keepdim=True)
+    """Each instance of a (B, ...) stack over its Frobenius norm (zero
+    stays zero)."""
+    nrm = torch.linalg.vector_norm(A, dim=tuple(range(1, A.dim())),
+                                   keepdim=True)
     return A / torch.where(nrm > 0, nrm, 1.0)
 
 
@@ -101,6 +123,15 @@ _FUSED_TIERS = {
                                   two_pass=True),
     "streamed": kernels.fused_lanczos_ground_state_streamed,
     "streamed_matvec": kernels.fused_lanczos_ground_state_streamed2,
+    "streamed_matvec_xl": functools.partial(
+        kernels.fused_lanczos_ground_state_streamed2, xl=True),
+}
+# The fused two-site local solve of each tier of kernels.two_site_tier.
+_FUSED_TIERS_2S = {
+    "resident": kernels.fused_lanczos_ground_state_2s,
+    "streamed_matvec": kernels.fused_lanczos_ground_state_2s_streamed,
+    "streamed_matvec_xl": functools.partial(
+        kernels.fused_lanczos_ground_state_2s_streamed, xl=True),
 }
 
 
@@ -127,6 +158,35 @@ def _local_solve_1s(Lenv, W, Renv, A, num_krylov_vecs: int, ritz_impl: str,
 
     evals, evecs = krylov.eigsh_lanczos(
         mv, A, num_krylov_vecs=num_krylov_vecs, numeig=1,
+        ritz_method=ritz_impl, reorthogonalize=reorth)
+    return evals[:, 0], evecs[:, 0]
+
+
+def _local_solve_2s(Lenv, W1, W2, Renv, theta, num_krylov_vecs: int,
+                    ritz_impl: str, reorth: bool, lanczos_impl: str):
+    """Smallest Ritz pair of every instance's two-site H_eff, theta (B,
+    chi, d, d, chi).  ``"fused"`` takes the tier
+    :func:`kernels.two_site_tier` picks (nt = d*d tiles, the MPO pair
+    pre-fused; plain three-term recurrence); ``"plain"`` is
+    :func:`krylov.eigsh_lanczos` with the H_eff matvec kernel at nt = d*d."""
+    if lanczos_impl == "fused":
+        _, chi, d, _, _ = theta.shape
+        tier = kernels.two_site_tier(chi, d, W1.shape[-4], num_krylov_vecs)
+        return _FUSED_TIERS_2S[tier](Lenv, W1, W2, Renv, theta,
+                                     num_krylov_vecs=num_krylov_vecs,
+                                     ritz_method=ritz_impl)
+    if lanczos_impl != "plain":
+        raise ValueError(f"unknown lanczos_impl {lanczos_impl!r}")
+    B, chi, d, _, _ = theta.shape
+    Lt, C, Rt, _ = kernels.prepare_operands_2s(Lenv, W1, W2, Renv, theta)
+
+    def mv(x):
+        xt = x.reshape(B, chi, d * d, chi).permute(0, 2, 1, 3).contiguous()
+        y = kernels.finalize_output(kernels.heff_matvec(Lt, C, Rt, xt))
+        return y.reshape(x.shape)
+
+    evals, evecs = krylov.eigsh_lanczos(
+        mv, theta, num_krylov_vecs=num_krylov_vecs, numeig=1,
         ritz_method=ritz_impl, reorthogonalize=reorth)
     return evals[:, 0], evecs[:, 0]
 
@@ -260,6 +320,131 @@ def one_site_sweep(As, Ws, vL, vR, num_krylov_vecs: int = 10,
     return SweepResult(*(t[0] for t in res))
 
 
+def _truncate(th, q0, chi: int, trunc_impl: str, trunc_iters: int,
+              trunc_orth: str, trunc_polar_fast):
+    """Split every instance's (B, m, n) panel th ~ U @ SV at rank chi:
+    ``U`` a column isometry, ``SV`` the rest normalised, and the discarded
+    squared norm.  ``"subspace"`` warm-starts from ``q0`` (B, m, chi)."""
+    if trunc_impl == "subspace":
+        st = decompositions.subspace_truncate(
+            th, chi, q0=q0, iters=trunc_iters, orth=trunc_orth,
+            polar_fast=trunc_polar_fast)
+        return st.q, _normalize(st.rest), st.trunc_sq_norm
+    if trunc_impl != "svd":
+        raise ValueError(f"unknown trunc_impl {trunc_impl!r}")
+    res = decompositions.svd_masked(th, max_singular_values=chi)
+    s = _normalize(res.s)
+    return res.u, s[:, :, None] * res.vh, res.trunc_sq_norm
+
+
+def _two_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
+                         boundary_envs, qr_impl: str, ritz_impl: str,
+                         reorth: bool, lanczos_impl: str, trunc_impl: str,
+                         trunc_iters: int, trunc_orth: str,
+                         trunc_polar_fast, renvs) -> SweepResult:
+    """One full two-site sweep of a batch As (B, N, chi, d, chi): the
+    left-to-right pass over the bonds (0, 1) ... (N-2, N-1), then the
+    right-to-left pass back, each bond truncated to chi.  ``renvs`` (B,
+    N-1, chi, M, chi): the previous result's, which skips the prepass."""
+    B, N, chi, d, _ = As.shape
+    Ws, vL, vR = (t.to(As.dtype) for t in (Ws, vL, vR))
+    if renvs is None:
+        As, Renvs = _right_canonicalize_and_envs(
+            As, Ws, vR, None if boundary_envs is None else boundary_envs[1],
+            qr_impl)
+        step_renvs = Renvs[:, 1:]
+    else:
+        # sweep chaining: the previous reverse pass left sites 1.. right-
+        # canonical (truncation isometries), the center at site 0, and
+        # built exactly these bond-step environments
+        step_renvs = renvs
+    solve = functools.partial(_local_solve_2s,
+                              num_krylov_vecs=num_krylov_vecs,
+                              ritz_impl=ritz_impl, reorth=reorth,
+                              lanczos_impl=lanczos_impl)
+    trunc = functools.partial(_truncate, chi=chi, trunc_impl=trunc_impl,
+                              trunc_iters=trunc_iters, trunc_orth=trunc_orth,
+                              trunc_polar_fast=trunc_polar_fast)
+    terr = torch.zeros((B,), dtype=As.dtype, device=As.device)
+
+    Lenv = (_boundary_left(B, chi, vL) if boundary_envs is None
+            else boundary_envs[0])
+    pending = As[:, 0]
+    As1, Lenvs = [None] * N, [None] * (N - 1)
+    for i in range(N - 1):
+        W1, W2 = _site(Ws, i), _site(Ws, i + 1)
+        theta = _normalize(torch.einsum("Basb,Bbtc->Bastc", pending,
+                                        As[:, i + 1]))
+        _, th = solve(Lenv, W1, W2, step_renvs[:, i], theta)
+        U, SV, tsq = trunc(th.reshape(B, chi * d, d * chi),
+                           pending.reshape(B, chi * d, chi))
+        Lenvs[i] = Lenv
+        As1[i] = U.reshape(B, chi, d, chi)
+        Lenv = _update_left(Lenv, As1[i], W1)
+        pending = SV.reshape(B, chi, d, chi)
+        terr = terr + tsq
+    As1[N - 1] = pending
+
+    Renv = (_boundary_right(B, chi, vR) if boundary_envs is None
+            else boundary_envs[1])
+    As2, Es, Renvs_out = [None] * N, [None] * (N - 1), [None] * (N - 1)
+    for i in reversed(range(N - 1)):
+        W1, W2 = _site(Ws, i), _site(Ws, i + 1)
+        theta = _normalize(torch.einsum("Basb,Bbtc->Bastc", As1[i],
+                                        pending))
+        Es[i], th = solve(Lenvs[i], W1, W2, Renv, theta)
+        # truncate th^T = q @ rest, so th = rest^T @ q^T = US @ V
+        q, rest, tsq = trunc(th.reshape(B, chi * d, d * chi).mT,
+                             pending.reshape(B, chi, d * chi).mT)
+        Renvs_out[i] = Renv
+        As2[i + 1] = q.mT.reshape(B, chi, d, chi)
+        Renv = _update_right(Renv, As2[i + 1], W2)
+        pending = rest.mT.reshape(B, chi, d, chi)
+        terr = terr + tsq
+    As2[0] = pending
+    Es = torch.stack(Es, 1)
+    return SweepResult(torch.stack(As2, 1), Es[:, 0], Es, terr,
+                       torch.stack(Renvs_out, 1))
+
+
+def two_site_sweep(As, Ws, vL, vR, num_krylov_vecs: int = 10,
+                   boundary_envs: Optional[Tuple] = None,
+                   qr_impl: Optional[str] = None,
+                   ritz_impl: Optional[str] = None,
+                   reorth: bool = True,
+                   lanczos_impl: Optional[str] = None,
+                   trunc_impl: Optional[str] = None,
+                   trunc_iters: Optional[int] = None,
+                   trunc_orth: Optional[str] = None,
+                   trunc_polar_fast: Optional[Tuple[int, int]] = None,
+                   renvs=None) -> SweepResult:
+    """One full two-site DMRG sweep of one instance As (N, chi, d, chi),
+    each bond truncated back to chi, on the device the tensors lie on.
+    Returns a :class:`SweepResult` with ``energies`` per bond (N-1,),
+    ``trunc_err`` the accumulated discarded weight of both passes and
+    ``renvs`` (N-1, chi, M, chi) for chaining.
+
+    ``boundary_envs``, ``qr_impl``, ``ritz_impl``, ``lanczos_impl`` as in
+    :func:`one_site_sweep`; ``trunc_impl``/``trunc_iters``/``trunc_orth``
+    default to :data:`TRUNC_IMPL`/:data:`TRUNC_ITERS`/:data:`TRUNC_ORTH`;
+    ``trunc_polar_fast`` as in
+    :func:`~tensornetwork_tpu_torch.ops.decompositions.subspace_truncate`."""
+    qr_impl = QR_IMPL if qr_impl is None else qr_impl
+    ritz_impl = RITZ_IMPL if ritz_impl is None else ritz_impl
+    lanczos_impl = LANCZOS_IMPL if lanczos_impl is None else lanczos_impl
+    trunc_impl = TRUNC_IMPL if trunc_impl is None else trunc_impl
+    trunc_iters = TRUNC_ITERS if trunc_iters is None else trunc_iters
+    trunc_orth = TRUNC_ORTH if trunc_orth is None else trunc_orth
+    benvs = (None if boundary_envs is None
+             else tuple(e[None] for e in boundary_envs))
+    with highest_precision():
+        res = _two_site_sweep_impl(
+            As[None], Ws, vL, vR, num_krylov_vecs, benvs, qr_impl, ritz_impl,
+            reorth, lanczos_impl, trunc_impl, trunc_iters, trunc_orth,
+            trunc_polar_fast, None if renvs is None else renvs[None])
+    return SweepResult(*(t[0] for t in res))
+
+
 def random_mps_stack(generator, N: int, chi: int, d: int = 2,
                      dtype: Optional[torch.dtype] = None,
                      device: Optional[Device] = None) -> torch.Tensor:
@@ -305,25 +490,38 @@ class FiniteDMRG:
             raise ValueError(f"MPS physical dimension {self.As.shape[2]} "
                              f"!= MPO physical dimension {mpo.phys_dim}")
         self.energies: list = []
+        self.truncation_errors: list = []
 
-    def run_one_site(self, num_sweeps: int = 4, num_krylov_vecs: int = 10,
-                     tol: float = 1e-10, verbose: int = 0) -> float:
-        """Run chained one-site sweeps; returns the last energy."""
+    def _run(self, sweep_fn, num_sweeps: int, num_krylov_vecs: int,
+             tol: float, verbose: int) -> float:
         e_prev, renvs = None, None
         for sweep in range(num_sweeps):
-            res = one_site_sweep(self.As, self.mpo.Ws, self.mpo.vL,
-                                 self.mpo.vR,
-                                 num_krylov_vecs=num_krylov_vecs,
-                                 renvs=renvs)
+            res = sweep_fn(self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
+                           num_krylov_vecs=num_krylov_vecs, renvs=renvs)
             self.As, renvs = res.As, res.renvs
             e = float(res.energy)
             self.energies.append(e)
+            self.truncation_errors.append(float(res.trunc_err))
             if verbose > 0:
                 print(f"sweep {sweep}: E = {e:.12f}")
             if e_prev is not None and abs(e - e_prev) < tol:
                 break
             e_prev = e
         return self.energies[-1]
+
+    def run_one_site(self, num_sweeps: int = 4, num_krylov_vecs: int = 10,
+                     tol: float = 1e-10, verbose: int = 0) -> float:
+        """Run chained one-site sweeps; returns the last energy."""
+        return self._run(one_site_sweep, num_sweeps, num_krylov_vecs, tol,
+                         verbose)
+
+    def run_two_site(self, num_sweeps: int = 4, num_krylov_vecs: int = 10,
+                     tol: float = 1e-10, verbose: int = 0) -> float:
+        """Run chained two-site sweeps (each bond truncated back to the
+        MPS bond dimension); returns the last energy.  The discarded
+        weight of each sweep is appended to ``truncation_errors``."""
+        return self._run(two_site_sweep, num_sweeps, num_krylov_vecs, tol,
+                         verbose)
 
     def compute_energy(self) -> float:
         return float(mps_mpo_expectation(self.As, self.mpo.Ws, self.mpo.vL,

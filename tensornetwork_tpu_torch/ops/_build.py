@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 SOURCES = ("heff_matvec.cu", "fused_lanczos.cu", "fused_lanczos_2pass.cu",
-           "fused_lanczos_streamed.cu", "streamed_matvec.cu")
+           "fused_lanczos_streamed.cu", "streamed_matvec.cu",
+           "streamed_matvec_xl.cu")
 HEADERS = ("heff.cuh", "lanczos_grid.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,16 +1,19 @@
-"""Hand-written CUDA kernels of the one-site DMRG solve, with their twins.
+"""Hand-written CUDA kernels of the DMRG local solve, with their twins.
 
-Counterpart of the one-site part of :mod:`tensornetwork_tpu.ops.kernels`.
+Counterpart of the DMRG part of :mod:`tensornetwork_tpu.ops.kernels`.
 Index conventions:
   L[a, w, c]   W[w, v, s, t]   R[b, v, d]   x[a, t, b]  ->  y[c, s, d]
 and the kernel layout of :func:`prepare_operands`:
   Lt (B, M, chi, chi) [w, c, a]   Rt (B, M, chi, chi) [v, b, d]
   xt (B, d, chi, chi) [t, a, b]   y  (B, d, chi, chi) [s, c, d]
   W  (M, M, d, d) shared by the batch, or (B, M, M, d, d) one per instance.
+The two-site solve is the same sandwich with nt = d*d physical tiles and
+the MPO pair pre-fused into couplings C (M, M, nt, nt)
+(:func:`fuse_mpo_pair`); every kernel takes any number of tiles.
 
 The local solve is a ladder of tiers chosen by bond dimension
-(:func:`one_site_tier`), each with its kernels (sources in ``csrc/``, built
-by :mod:`._build`):
+(:func:`one_site_tier`, :func:`two_site_tier`), each with its kernels
+(sources in ``csrc/``, built by :mod:`._build`):
 
 * resident (chi <= 256): :func:`fused_lanczos` -- m matvecs plus the
   three-term recurrence, one block per instance (replaces
@@ -24,9 +27,17 @@ by :mod:`._build`):
 * streamed (chi = 512): :func:`fused_lanczos_streamed`, K2's function with
   the whole card on each instance (replaces
   ``make_fused_lanczos_streamed``).
-* streamed_matvec (chi = 1024): :func:`streamed_matvec` returns (H x,
-  <x, H x>) (replaces ``make_streamed_matvec``); the recurrence runs in
-  PyTorch (:func:`streamed_lanczos`).
+* streamed_matvec (one-site chi = 1024, two-site chi = 128...512):
+  :func:`streamed_matvec` returns (H x, <x, H x>) (replaces
+  ``make_streamed_matvec``); the recurrence runs in PyTorch
+  (:func:`streamed_lanczos`).
+* streamed_matvec_xl (one-site chi = 2048, two-site chi = 1024):
+  :func:`streamed_matvec_xl`, the same function with the contraction of
+  stage 1 split into K3 chunks (replaces ``make_streamed_matvec_xl``),
+  under the same recurrence.
+
+Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
+(:func:`fused_lanczos_ground_state_2s`).
 
 Each wrapper runs its plain-PyTorch twin (same algorithm) when handed CPU
 tensors, and launches its kernel, or raises, when handed CUDA tensors.
@@ -36,10 +47,11 @@ blocks of the last launch of the grid-wide kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from tensornetwork_tpu_torch.config import highest_precision
 from tensornetwork_tpu_torch.ops import _build, krylov
 
 LARGE = krylov.LARGE
@@ -48,7 +60,7 @@ LARGE = krylov.LARGE
 launch_counts: Dict[str, int] = {
     "heff_matvec": 0, "fused_lanczos": 0, "fused_lanczos_fact": 0,
     "fused_lanczos_replay": 0, "fused_lanczos_streamed": 0,
-    "streamed_matvec": 0}
+    "streamed_matvec": 0, "streamed_matvec_xl": 0}
 # blocks of the last launch of each grid-wide (cooperative) kernel
 last_grid: Dict[str, int] = {}
 
@@ -71,13 +83,16 @@ _ARGTYPES = {
                                 _P, _P, _I, _I, _I, _I, _I, _D, _P, _P],
     "tn_streamed_matvec": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _P],
+    "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _P],
 }
 _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
             "tn_fused_lanczos": "fused_lanczos.cu",
             "tn_fused_lanczos_streamed": "fused_lanczos_streamed.cu",
             "tn_fused_lanczos_fact": "fused_lanczos_2pass.cu",
             "tn_fused_lanczos_replay": "fused_lanczos_2pass.cu",
-            "tn_streamed_matvec": "streamed_matvec.cu"}
+            "tn_streamed_matvec": "streamed_matvec.cu",
+            "tn_streamed_matvec_xl": "streamed_matvec_xl.cu"}
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
 
 
@@ -199,11 +214,14 @@ def heff_matvec(Lt, W, Rt, xt):
 # ---------------------------------------------------------------------------
 
 # The JAX package's TPU budgets (its ops/vmem.py: 12 MB for the resident and
-# two-pass kernels, 14 MB for the chunked planners, and for d > 2 resident
-# kernels a measured 6.36x inflation against the 16 MB physical limit).
+# two-pass kernels, 14 MB for the chunked planners, and for nt > 2 resident
+# kernels a measured 6.36x inflation against the 16 MB physical limit), and
+# the (chi, nt, M) shapes whose streamed-matvec plans it pins from TPU
+# measurements (admitted whatever the byte count says).
 _RESIDENT_BYTES = 12 * 2 ** 20
 _STREAMED_BYTES = 14_000_000
 _WIDE_INFLATION, _PHYSICAL_BYTES = 6.36, 16 * 2 ** 20
+_PINNED_MATVEC_SHAPES = {(512, 4, 3), (1024, 2, 3)}
 
 
 def _chunk_counts(chi: int, min_chunk: int):
@@ -215,25 +233,66 @@ def _chunk_counts(chi: int, min_chunk: int):
         K *= 2
 
 
+def _admits_resident(chi: int, nt: int, M: int, m: int) -> bool:
+    """The whole-Lanczos kernel with its basis resident (``vmem.
+    admit_resident_lanczos``)."""
+    need = 4 * chi * chi * (2 * M + nt * (m + 4 + M))
+    return (need <= _RESIDENT_BYTES if nt <= 2
+            else need * _WIDE_INFLATION <= _PHYSICAL_BYTES)
+
+
+def _admits_streamed_matvec(chi: int, nt: int, M: int) -> bool:
+    """Both output axes chunked (rows K ways, columns K2 ways), x resident;
+    L, R, Q and y in chunks (``vmem.streamed_matvec_plan``)."""
+    if (chi, nt, M) in _PINNED_MATVEC_SHAPES:
+        return True
+    plane = 4 * chi * chi
+    for K in _chunk_counts(chi, 32):
+        for K2 in _chunk_counts(chi, 128):
+            cs, ds = chi // K, chi // K2
+            need = (plane * nt + 8 * M * cs * chi
+                    + (2 if K2 > 1 else 1) * 4 * M * chi * ds
+                    + 4 * M * nt * cs * chi + 8 * nt * cs * ds)
+            if need <= _STREAMED_BYTES:
+                return True
+    return False
+
+
+def _admits_streamed_matvec_xl(chi: int, nt: int, M: int) -> bool:
+    """All three axes chunked: x streamed in contraction chunks through
+    kernel A, Q staged in device memory (``vmem.streamed_matvec_xl_plan``,
+    the same search and the same early exit)."""
+    for K in _chunk_counts(chi, 32):
+        cs = chi // K
+        for K3 in _chunk_counts(chi, 128):
+            a = chi // K3
+            if 8 * nt * a * chi + 8 * M * cs * a + 4 * M * nt * cs * chi \
+                    > _STREAMED_BYTES:
+                continue
+            for K2 in _chunk_counts(chi, 128):
+                ds = chi // K2
+                if (8 * M * nt * cs * chi + 8 * M * chi * ds + 4 * nt * cs * ds
+                        + 8 * nt * cs * ds) <= _STREAMED_BYTES:
+                    return True
+            break  # kernel A fits but no K2 does: shrink the row chunk
+    return False
+
+
 def one_site_tier(chi: int, d: int, M: int, m: int) -> str:
     """The kernel tier of the one-site fused local solve at bond dimension
     ``chi``, physical dimension ``d``, MPO bond ``M`` and ``m`` Krylov
-    vectors: ``"resident"``, ``"two_pass"``, ``"streamed"`` or
-    ``"streamed_matvec"``.
+    vectors: ``"resident"``, ``"two_pass"``, ``"streamed"``,
+    ``"streamed_matvec"`` or ``"streamed_matvec_xl"``.
 
     The thresholds are the TPU's: the byte counts of the JAX package's VMEM
     admission (``ops/vmem.py``) against its 12 MB and 14 MB budgets, kept so
     that both packages take the same tier at the same shape.  They say
     nothing about this card; a later change re-picks them from the card's
-    measured tier times.  Raises ``NotImplementedError`` where the JAX
-    package takes its three-level-chunked tier (one-site chi=2048), whose
-    kernel (K8, ``make_streamed_matvec_xl``) is not ported yet (ROADMAP
-    Queue 2), or beyond it its plain Lanczos; it never takes another tier
-    instead."""
+    measured tier times.  Raises ``NotImplementedError`` beyond the XL tier
+    (one-site chi=4096 at d=2, M=3), where the JAX package takes its plain
+    Lanczos; it never takes another tier instead."""
     plane = 4 * chi * chi  # one f32 chi x chi tile
-    resident = plane * (2 * M + d * (m + 4 + M))
-    if (resident <= _RESIDENT_BYTES if d <= 2
-            else resident * _WIDE_INFLATION <= _PHYSICAL_BYTES):
+    if _admits_resident(chi, d, M, m):
         return "resident"
     if plane * (2 * M + 6 * d) <= _RESIDENT_BYTES:
         return "two_pass"
@@ -243,21 +302,37 @@ def one_site_tier(chi: int, d: int, M: int, m: int) -> str:
         if K > 1 and (plane * (M + 4 * d) + plane * (2 * M + M * d + 2 * d) // K
                       <= _STREAMED_BYTES):
             return "streamed"
-    # both output axes chunked (rows K ways, columns K2 ways): x resident;
-    # L, R, Q and y in chunks
-    for K in _chunk_counts(chi, 32):
-        for K2 in _chunk_counts(chi, 128):
-            cs, ds = chi // K, chi // K2
-            need = (plane * d + 8 * M * cs * chi
-                    + (2 if K2 > 1 else 1) * 4 * M * chi * ds
-                    + 4 * M * d * cs * chi + 8 * d * cs * ds)
-            if need <= _STREAMED_BYTES:
-                return "streamed_matvec"
+    if _admits_streamed_matvec(chi, d, M):
+        return "streamed_matvec"
+    if _admits_streamed_matvec_xl(chi, d, M):
+        return "streamed_matvec_xl"
     raise NotImplementedError(
-        f"one-site chi={chi}, d={d}, M={M}: the JAX package takes its "
-        "three-level-chunked matvec here (K8, make_streamed_matvec_xl), "
-        "or beyond it its plain Lanczos; the port has no such tier yet "
-        "(ROADMAP Queue 2)")
+        f"one-site chi={chi}, d={d}, M={M}: beyond the XL tier the JAX "
+        "package takes its plain Lanczos; the port has no such tier")
+
+
+def two_site_tier(chi: int, d: int, M: int, m: int) -> str:
+    """The kernel tier of the two-site fused local solve (nt = d*d physical
+    tiles, the MPO pair pre-fused): ``"resident"`` (K2), ``"streamed_matvec"``
+    (K7) or ``"streamed_matvec_xl"`` (K8), where the JAX package's
+    ``_local_solve_2s`` takes that tier -- at d=2, M=3, m=6: resident up to
+    chi~100, streamed matvec for chi=128...512, XL at chi=1024 and 2048.
+
+    As :func:`one_site_tier`, the thresholds are the TPU's VMEM admission
+    (with the 6.36x inflation of nt >= 4 resident kernels and the pinned
+    chi=512 plan), kept so that both packages take the same tier; a later
+    change re-picks them from the card's times.  Raises
+    ``NotImplementedError`` beyond the XL tier."""
+    nt = d * d
+    if _admits_resident(chi, nt, M, m):
+        return "resident"
+    if _admits_streamed_matvec(chi, nt, M):
+        return "streamed_matvec"
+    if _admits_streamed_matvec_xl(chi, nt, M):
+        return "streamed_matvec_xl"
+    raise NotImplementedError(
+        f"two-site chi={chi}, d={d}, M={M}: beyond the XL tier the JAX "
+        "package takes its plain Lanczos; the port has no such tier")
 
 
 # ---------------------------------------------------------------------------
@@ -528,16 +603,93 @@ def streamed_matvec(Lt, C, Rt, x):
     return y, alpha
 
 
+# ---------------------------------------------------------------------------
+# K8: the same matvec with the contraction of stage 1 split into K3 chunks
+# ---------------------------------------------------------------------------
+
+_XL_MIN_CHUNK = 32   # heff::KC: a chunk holds at least one staged step
+_H100_SMS = 132      # the K3 rule's SM count for CPU tensors
+
+
+def xl_chunk_count(chi: int, B: int, sms: int) -> int:
+    """K3 of :func:`streamed_matvec_xl`: the smallest power of two that
+    divides ``chi`` and gives kernel A (one block per 64 x 64 output tile,
+    contraction chunk and instance) at least two blocks per SM; where none
+    does, the largest with chunks of at least 32 rows.  Two-site chi=1024
+    at B=1 on 132 SMs: 2; one-site chi=2048: 1."""
+    tiles = (-(-chi // _TILE)) ** 2
+    counts = list(_chunk_counts(chi, _XL_MIN_CHUNK)) or [1]
+    for K3 in counts:
+        if tiles * K3 * B >= 2 * sms:
+            return K3
+    return counts[-1]
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return _H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def streamed_matvec_xl_plain(Lt, C, Rt, x, K3: int):
+    """Plain-PyTorch twin of :func:`streamed_matvec_xl`: for each of the K3
+    contraction chunks, the chunk's products L_w x_t folded through the
+    couplings into a partial Q; the partials summed in chunk order; then
+    y_s = sum_v Q[v, s] R_v and <x, y>."""
+    chi = x.shape[-1]
+    a = chi // K3
+    Q = None
+    for k in range(K3):
+        sl = slice(k * a, (k + 1) * a)
+        P = torch.matmul(Lt[:, :, None, :, sl], x[:, None, :, sl, :])
+        Qk = torch.einsum(f"{_wspec(C)},Bwtcb->Bvscb", C, P)
+        Q = Qk if Q is None else Q + Qk
+    y = torch.matmul(Q, Rt[:, :, None]).sum(1)
+    return y, _vdot(x, y)
+
+
+def streamed_matvec_xl(Lt, C, Rt, x, K3: Optional[int] = None):
+    """:func:`streamed_matvec`'s function -- (y, alpha = <x, y>) from the
+    same kernel-layout operands -- with the contraction of stage 1 split
+    into ``K3`` chunks, each folded into its own partial Q in device
+    memory, and the partials summed in chunk order by the GEMM stage.
+    ``K3`` (dividing chi) defaults to :func:`xl_chunk_count` for the
+    tensors' card.  Counterpart of ``make_streamed_matvec_xl``; its row and
+    column chunk counts (the TPU's VMEM plan) have no meaning here."""
+    B, chi, nt, M, c_stride = _validate(Lt, C, Rt, x)
+    if K3 is None:
+        K3 = xl_chunk_count(chi, B, _sm_count(x.device))
+    if K3 < 1 or chi % K3:
+        raise ValueError(f"K3={K3} must be >= 1 and divide chi={chi}")
+    if x.device.type == "cpu":
+        return streamed_matvec_xl_plain(Lt, C, Rt, x, K3)
+    kw = dict(dtype=x.dtype, device=x.device)
+    ntl = -(-chi // _TILE)
+    Qp = torch.empty((B, K3, M * nt, chi, chi), **kw)
+    y = torch.empty_like(x)
+    part = torch.empty((B, nt * ntl * ntl), **kw)
+    alpha = torch.empty((B,), **kw)
+    _launch("tn_streamed_matvec_xl", x.dtype, x.device,
+            C.data_ptr(), c_stride, Lt.data_ptr(), Rt.data_ptr(),
+            x.data_ptr(), Qp.data_ptr(), y.data_ptr(), part.data_ptr(),
+            alpha.data_ptr(), B, chi, nt, M, K3)
+    launch_counts["streamed_matvec_xl"] += 1
+    return y, alpha
+
+
 def streamed_lanczos(Lt, C, Rt, xt, num_krylov_vecs: int,
-                     delta: float = 1e-8):
-    """Plain three-term Lanczos with the matvec in :func:`streamed_matvec`
-    and the recurrence in PyTorch: the ``K3=None`` branch of the JAX
-    package's ``_streamed_lanczos_core``.  Returns ``(V, ab)`` as
-    :func:`fused_lanczos` (+1e10 alpha sentinels, zeroed betas and vectors
-    on dead steps); with C as W, its plain twin is
+                     delta: float = 1e-8,
+                     matvec: Optional[Callable] = None):
+    """Plain three-term Lanczos with the recurrence in PyTorch around
+    ``matvec(Lt, C, Rt, v) -> (H v, <v, H v>)``: :func:`streamed_matvec`
+    (K7, the default) or :func:`streamed_matvec_xl` (K8) -- the JAX
+    package's ``_streamed_lanczos_core`` without and with ``K3``.  Returns
+    ``(V, ab)`` as :func:`fused_lanczos` (+1e10 alpha sentinels, zeroed
+    betas and vectors on dead steps); with C as W, its plain twin is
     :func:`fused_lanczos_plain`."""
     _check_krylov(num_krylov_vecs)
-    return _lanczos_recurrence(lambda v: streamed_matvec(Lt, C, Rt, v), xt,
+    matvec = streamed_matvec if matvec is None else matvec
+    return _lanczos_recurrence(lambda v: matvec(Lt, C, Rt, v), xt,
                                num_krylov_vecs, delta)
 
 
@@ -598,14 +750,78 @@ def fused_lanczos_ground_state_streamed(L, W, R, x0, num_krylov_vecs: int,
     return _ritz_pair(V, ab, ritz_method, power_iters, delta)
 
 
+def _streamed_recurrence(Lt, C, Rt, xt, m, ritz_method, power_iters, delta,
+                         xl: bool):
+    matvec = streamed_matvec_xl if xl else streamed_matvec
+    V, ab = streamed_lanczos(Lt, C, Rt, xt, m, delta, matvec)
+    return _ritz_pair(V, ab, ritz_method, power_iters, delta)
+
+
 def fused_lanczos_ground_state_streamed2(L, W, R, x0, num_krylov_vecs: int,
                                          ritz_method: str = "eigh",
                                          power_iters: int = 60,
-                                         delta: float = 1e-8):
-    """One-site ground-state Lanczos through :func:`streamed_lanczos`, the
-    chi=1024 tier (operands and returns of
-    :func:`fused_lanczos_ground_state`).  The JAX package's ``plan`` (its
+                                         delta: float = 1e-8,
+                                         xl: bool = False):
+    """One-site ground-state Lanczos through :func:`streamed_lanczos`
+    (operands and returns of :func:`fused_lanczos_ground_state`): the
+    chi=1024 tier on :func:`streamed_matvec`, or with ``xl`` the chi=2048
+    tier on :func:`streamed_matvec_xl`.  The JAX package's ``plan`` (its
     VMEM chunking) has no meaning on the card and is not taken."""
     Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
-    V, ab = streamed_lanczos(Lt, W, Rt, xt, num_krylov_vecs, delta)
-    return _ritz_pair(V, ab, ritz_method, power_iters, delta)
+    return _streamed_recurrence(Lt, W, Rt, xt, num_krylov_vecs, ritz_method,
+                                power_iters, delta, xl)
+
+
+def fuse_mpo_pair(W1, W2):
+    """The two-site couplings ``C[w, v, (s, u), (t, z)] = sum_m W1[w, m, s,
+    t] W2[m, v, u, z]``, (M, M, d*d, d*d) (or with a leading batch axis
+    on both).  Computed in full fp32 (:func:`highest_precision`): a TF32
+    product would put ~1e-3 of error into every coupling, as the JAX
+    package measured for its bf16 default on the TPU."""
+    M, d = W1.shape[-4], W1.shape[-1]
+    with highest_precision():
+        C = torch.einsum("...wmst,...mvuz->...wvsutz", W1, W2)
+    return C.reshape(C.shape[:-6] + (M, M, d * d, d * d)).contiguous()
+
+
+def prepare_operands_2s(L, W1, W2, R, x0):
+    """Solver-layout two-site operands -> kernel layout (Lt, C, Rt, xt)
+    with nt = d*d tiles and the couplings of :func:`fuse_mpo_pair`; x0
+    (B, a, t, z, b)."""
+    B, chi, d = x0.shape[0], x0.shape[1], x0.shape[2]
+    return prepare_operands(L, fuse_mpo_pair(W1, W2), R,
+                            x0.reshape(B, chi, d * d, chi))
+
+
+def fused_lanczos_ground_state_2s(L, W1, W2, R, x0, num_krylov_vecs: int,
+                                  ritz_method: str = "power",
+                                  power_iters: int = 60,
+                                  delta: float = 1e-8):
+    """Two-site batched ground-state Lanczos through :func:`fused_lanczos`
+    with nt = d*d tiles and the MPO pair pre-fused
+    (:func:`fuse_mpo_pair`).  Operands: L (B, a, M, c), W1/W2 (M, M, d,
+    d), R (B, b, M, d), x0 (B, a, t, z, b).  Returns ``(evals (B,), evecs
+    (B, a, t, z, b))``.  Counterpart of the JAX package's
+    ``fused_lanczos_ground_state_2s``."""
+    Lt, C, Rt, xt = prepare_operands_2s(L, W1, W2, R, x0)
+    V, ab = fused_lanczos(Lt, C, Rt, xt, num_krylov_vecs, delta)
+    evals, y = _ritz_pair(V, ab, ritz_method, power_iters, delta)
+    return evals, y.reshape(x0.shape)
+
+
+def fused_lanczos_ground_state_2s_streamed(L, W1, W2, R, x0,
+                                           num_krylov_vecs: int,
+                                           ritz_method: str = "eigh",
+                                           power_iters: int = 60,
+                                           delta: float = 1e-8,
+                                           xl: bool = False):
+    """:func:`fused_lanczos_ground_state_2s` (same operands and returns)
+    with the recurrence in PyTorch around :func:`streamed_matvec` (the
+    chi=128...512 tier) or, with ``xl``, :func:`streamed_matvec_xl` (the
+    chi=1024 tier).  Counterpart of the JAX package's
+    ``fused_lanczos_ground_state_2s_streamed``; its ``plan`` has no
+    meaning on the card."""
+    Lt, C, Rt, xt = prepare_operands_2s(L, W1, W2, R, x0)
+    evals, y = _streamed_recurrence(Lt, C, Rt, xt, num_krylov_vecs,
+                                    ritz_method, power_iters, delta, xl)
+    return evals, y.reshape(x0.shape)

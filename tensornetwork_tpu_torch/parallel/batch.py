@@ -1,6 +1,6 @@
-"""Batched one-site DMRG over many independent instances.
+"""Batched one- and two-site DMRG over many independent instances.
 
-Counterpart of the one-site part of :mod:`tensornetwork_tpu.parallel.batch`.
+Counterpart of the DMRG part of :mod:`tensornetwork_tpu.parallel.batch`.
 The instances are a leading dimension of every tensor; in the local solve
 that dimension is the fused-Lanczos kernel's grid (one block per
 instance).  There is one route: the JAX package's paired/unpaired split
@@ -51,6 +51,34 @@ def batched_one_site_sweep_multi_mpo(As_batch, Ws_batch, vL, vR,
             ritz_impl, False, "fused", renvs)
 
 
+def batched_two_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
+                           qr_impl: str = "polar",
+                           ritz_impl: str = "power",
+                           reorth: bool = False,
+                           lanczos_impl: str = "fused",
+                           trunc_impl: str = "subspace",
+                           trunc_iters: int = 2,
+                           trunc_orth: str = "polar",
+                           trunc_polar_fast=None,
+                           renvs=None) -> _dmrg.SweepResult:
+    """One two-site sweep over a batch As_batch (B, N, chi, d, chi) with
+    one MPO shared by the batch.  Returns a batched
+    :class:`~tensornetwork_tpu_torch.models.dmrg.SweepResult` (energy (B,),
+    energies (B, N-1), trunc_err (B,), renvs (B, N-1, chi, M, chi)).
+
+    The defaults are the JAX package's batched accelerator ones: the
+    matmul-only gauge, the power Ritz solve, no reorthogonalisation, the
+    fused Lanczos (K2 at nt = d*d for the resident tier, the batch on its
+    grid), and bond truncation by 2 warm-started subspace iterations with
+    the Newton-Schulz polar orthonormaliser.  Pass ``trunc_impl="svd"``
+    for the exact masked SVD."""
+    with highest_precision():
+        return _dmrg._two_site_sweep_impl(
+            As_batch, Ws, vL, vR, num_krylov_vecs, None, qr_impl, ritz_impl,
+            reorth, lanczos_impl, trunc_impl, trunc_iters, trunc_orth,
+            trunc_polar_fast, renvs)
+
+
 class BatchedDMRG:
     """Ground-state search over many instances at once on one device.
     Tensors stay on their device; anything else goes to
@@ -67,6 +95,18 @@ class BatchedDMRG:
         renvs = None
         for _ in range(num_sweeps):
             res = batched_one_site_sweep(
+                self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
+                num_krylov_vecs=num_krylov_vecs, renvs=renvs)
+            self.As, self.energies, renvs = res.As, res.energy, res.renvs
+        return self.energies
+
+    def run_two_site(self, num_sweeps: int = 4,
+                     num_krylov_vecs: int = 10) -> torch.Tensor:
+        """Chained two-site sweeps with the batched defaults; returns the
+        per-instance energies (B,)."""
+        renvs = None
+        for _ in range(num_sweeps):
+            res = batched_two_site_sweep(
                 self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
                 num_krylov_vecs=num_krylov_vecs, renvs=renvs)
             self.As, self.energies, renvs = res.As, res.energy, res.renvs

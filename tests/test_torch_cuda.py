@@ -3,6 +3,8 @@
 Marked ``cuda``: they skip without a CUDA card (the kernels have no CPU
 mode).  On the card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +12,7 @@ import torch
 from tensornetwork_tpu_torch.config import highest_precision
 from tensornetwork_tpu_torch.models import dmrg as tdmrg
 from tensornetwork_tpu_torch.models import mpo as tmpo
+from tensornetwork_tpu_torch.ops import decompositions as TD
 from tensornetwork_tpu_torch.ops import kernels as TK
 
 pytestmark = pytest.mark.cuda
@@ -218,3 +221,107 @@ def test_sweep_through_each_tier_is_variational(cuda, monkeypatch, tier):
     assert all(TK.launch_counts[k] > 0 for k in kernels)
     assert TK.launch_counts["fused_lanczos"] == 0
     assert exact - 1e-9 <= e < exact + 1e-8
+
+
+# ---------------------------------------------------------------------------
+# The two-site slice: K8 (XL streamed matvec) and K2 at nt=4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chi,nt", [(64, 4), (80, 2), (128, 4)])
+@pytest.mark.parametrize("K3", [1, 2, 4])
+def test_streamed_matvec_xl_kernel_matches_twin(cuda, dtype, chi, nt, K3):
+    B, M = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(chi + nt + K3)
+    kw = dict(dtype=dtype, device=cuda, generator=g)
+    Lt, Rt = (torch.randn((B, M, chi, chi), **kw) for _ in range(2))
+    C = torch.randn((M, M, nt, nt), **kw)
+    x = torch.randn((B, nt, chi, chi), **kw)
+    TK.reset_launch_counts()
+    y, alpha = TK.streamed_matvec_xl(Lt, C, Rt, x, K3=K3)
+    assert TK.launch_counts["streamed_matvec_xl"] == 1
+    with highest_precision():
+        y0, alpha0 = TK.streamed_matvec_xl_plain(Lt, C, Rt, x, K3)
+        y7, _ = TK.streamed_matvec(Lt, C, Rt, x)
+        own = (x * y).sum(dim=(1, 2, 3))
+    assert _rel(y, y0) < TOL[dtype][0] and _rel(y, y7) < TOL[dtype][0]
+    scale = float(x.norm() * y0.norm())  # alpha may cancel
+    assert float((alpha - alpha0).abs().max()) < TOL[dtype][0] * scale
+    assert float((alpha - own).abs().max()) < TOL[dtype][0] * scale
+    # fixed-order sums: a second launch gives the same bits
+    y2, alpha2 = TK.streamed_matvec_xl(Lt, C, Rt, x, K3=K3)
+    assert torch.equal(y, y2) and torch.equal(alpha, alpha2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_streamed_matvec_xl_breakdown(cuda, dtype):
+    Lt, W, Rt, x = _breakdown(cuda, dtype)
+    m = 4
+    V0, ab0 = TK.fused_lanczos_plain(Lt, W, Rt, x, m)
+    for K3 in (1, 2, 4):
+        V, ab = TK.streamed_lanczos(Lt, W, Rt, x, m, matvec=functools.partial(
+            TK.streamed_matvec_xl, K3=K3))
+        assert torch.equal(V, V0) and torch.equal(ab, ab0)
+    assert float(ab0[0, 0, 0]) == 1.0 and bool((ab0[0, 0, 1:] == 1e10).all())
+    assert bool((ab0[1, 0] == 1e10).all()) and bool((ab0[:, 1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_lanczos_kernel_nt4_matches_twin(cuda, dtype):
+    # the two-site resident tier: K2 with nt = d*d = 4 tiles
+    Lt, C, Rt, xt = _operands(4, 64, 4, 3, dtype, cuda)
+    TK.reset_launch_counts()
+    V, ab = TK.fused_lanczos(Lt, C, Rt, xt, 6)
+    assert TK.launch_counts["fused_lanczos"] == 1
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(Lt, C, Rt, xt, 6)
+    assert _rel(ab, ab0) < TOL[dtype][1] and _rel(V, V0) < TOL[dtype][1]
+
+
+@pytest.mark.parametrize("tier,kernel", [
+    ("resident", "fused_lanczos"), ("streamed_matvec", "streamed_matvec"),
+    ("streamed_matvec_xl", "streamed_matvec_xl")])
+def test_two_site_sweep_through_each_tier_is_variational(cuda, monkeypatch,
+                                                         tier, kernel):
+    N, chi = 8, 16
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64, device=cuda)
+    exact = np.linalg.eigvalsh(tmpo.mpo_to_dense(mpo))[0]
+    As = tdmrg.random_mps_stack(0, N, chi, 2, dtype=torch.float64, device=cuda)
+    monkeypatch.setattr(TK, "two_site_tier", lambda *a: tier)
+    TK.reset_launch_counts()
+    e = tdmrg.FiniteDMRG(As, mpo).run_two_site(num_sweeps=4, num_krylov_vecs=8)
+    assert TK.launch_counts[kernel] > 0
+    assert sum(TK.launch_counts.values()) == TK.launch_counts[kernel]
+    assert exact - 1e-9 <= e < exact + 1e-8
+
+
+def test_one_site_sweep_through_the_xl_tier_is_variational(cuda, monkeypatch):
+    N, chi = 8, 8
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64, device=cuda)
+    exact = np.linalg.eigvalsh(tmpo.mpo_to_dense(mpo))[0]
+    As = tdmrg.random_mps_stack(0, N, chi, 2, dtype=torch.float64, device=cuda)
+    monkeypatch.setattr(TK, "one_site_tier", lambda *a: "streamed_matvec_xl")
+    TK.reset_launch_counts()
+    e = tdmrg.FiniteDMRG(As, mpo).run_one_site(num_sweeps=3, num_krylov_vecs=8)
+    # every sweep solves 2N sites with m=8 matvecs each (it may stop early)
+    count = TK.launch_counts["streamed_matvec_xl"]
+    assert count > 0 and count % (2 * N * 8) == 0
+    assert sum(TK.launch_counts.values()) == count
+    assert exact - 1e-9 <= e < exact + 1e-8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_svd_masked_on_the_card_is_orthonormal(cuda, dtype):
+    # the truncation isometry of the two-site sweep: cuSOLVER's gesvd keeps
+    # f32 singular vectors orthonormal to rounding (the Jacobi routine did
+    # not, and biased the sweep's Ritz energies)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((2, 64, 64), dtype=dtype, device=cuda, generator=g)
+    res = TD.svd_masked(a, 32)
+    eye = torch.eye(32, dtype=dtype, device=cuda)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((res.u.mT @ res.u - eye).abs().max()) < tol
+    assert float((res.vh @ res.vh.mT - eye).abs().max()) < tol
+    ref = TD.svd_masked(a.cpu(), 32)
+    torch.testing.assert_close(res.s.cpu(), ref.s, rtol=10 * tol, atol=10 * tol)

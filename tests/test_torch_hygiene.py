@@ -90,3 +90,18 @@ def test_kernel_build_key_covers_every_source():
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == set(_build.HEADERS)
     assert len(_build.build_key()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
+
+
+def test_every_kernel_has_its_source_and_a_launch_count():
+    from tensornetwork_tpu_torch.ops import _build, kernels
+
+    assert set(kernels._SOURCES) == set(kernels._ARGTYPES)
+    assert set(kernels._SOURCES.values()) == set(_build.SOURCES)
+    # the C entry points are tn_<name>, counted under <name>
+    assert {f[3:] for f in kernels._SOURCES} == set(kernels.launch_counts)
+    for src in _build.SOURCES:
+        text = (_build.CSRC / src).read_text()
+        assert "Replaces: tensornetwork_tpu/ops/kernels.py" in text, src
+        for fn in (f for f, s in kernels._SOURCES.items() if s == src):
+            assert f'extern "C" int {fn}_f32' in text
+            assert f'extern "C" int {fn}_f64' in text

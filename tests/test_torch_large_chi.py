@@ -40,7 +40,8 @@ LANCZOS_TOL = {"f32": 5e-5, "f64": 1e-11}
 EVEC_TOL = {"f32": 5e-4, "f64": 1e-9}
 # f64 at chi=8: JAX's interpret mode is the slow side.
 CHI = {"f32": 16, "f64": 8}
-TIERS = ("resident", "two_pass", "streamed", "streamed_matvec")
+TIERS = ("resident", "two_pass", "streamed", "streamed_matvec",
+         "streamed_matvec_xl")
 
 
 def _rel(a, b):
@@ -112,7 +113,9 @@ def _jax_tier(chi, d, M, m):
         return "streamed"
     if vmem.streamed_matvec_plan(chi, d, M) is not None:
         return "streamed_matvec"
-    return "xl" if vmem.streamed_matvec_xl_plan(chi, d, M) else "xla"
+    if vmem.streamed_matvec_xl_plan(chi, d, M) is not None:
+        return "streamed_matvec_xl"
+    return "xla"
 
 
 @pytest.mark.parametrize("chi", [64, 128, 256, 384, 512, 1024])
@@ -127,7 +130,7 @@ def test_router_takes_the_jax_tier(chi):
 def test_router_agrees_with_jax_at_other_widths(d, M, m):
     for chi in (16, 64, 96, 128, 192, 256, 320, 384, 512, 768, 1024, 2048):
         want = _jax_tier(chi, d, M, m)
-        if want in ("xl", "xla"):
+        if want == "xla":
             with pytest.raises(NotImplementedError):
                 TK.one_site_tier(chi, d, M, m)
         else:
@@ -135,9 +138,13 @@ def test_router_agrees_with_jax_at_other_widths(d, M, m):
 
 
 def test_router_raises_at_the_xl_tier():
-    assert _jax_tier(2048, 2, 3, 10) == "xl"
-    with pytest.raises(NotImplementedError, match="K8"):
-        TK.one_site_tier(2048, 2, 3, 10)
+    # one-site chi=2048 takes the XL tier (K8); beyond it (chi=4096, no XL
+    # plan) the JAX package takes its plain Lanczos and the router raises
+    assert _jax_tier(2048, 2, 3, 10) == "streamed_matvec_xl"
+    assert TK.one_site_tier(2048, 2, 3, 10) == "streamed_matvec_xl"
+    assert _jax_tier(4096, 2, 3, 10) == "xla"
+    with pytest.raises(NotImplementedError, match="XL tier"):
+        TK.one_site_tier(4096, 2, 3, 10)
 
 
 # ---------------------------------------------------------------------------
@@ -308,12 +315,16 @@ def _jax_ground_state(tier, solver, m, np_dt):
     if tier == "streamed":
         return JK.fused_lanczos_ground_state_streamed(*solver, n_chunks=2,
                                                       **args)
+    if tier == "streamed_matvec_xl":
+        return JK.fused_lanczos_ground_state_streamed2(*solver, plan=(2, 2, 2),
+                                                       **args)
     return JK.fused_lanczos_ground_state_streamed2(*solver, plan=(2, 2), **args)
 
 
 _PORT_GS = {"two_pass": tdmrg._FUSED_TIERS["two_pass"],
             "streamed": TK.fused_lanczos_ground_state_streamed,
-            "streamed_matvec": TK.fused_lanczos_ground_state_streamed2}
+            "streamed_matvec": TK.fused_lanczos_ground_state_streamed2,
+            "streamed_matvec_xl": tdmrg._FUSED_TIERS["streamed_matvec_xl"]}
 
 
 @pytest.mark.parametrize("kind", ["f32", "f64"])

@@ -104,13 +104,13 @@ def test_ns_polar_rank_deficient_panel(rng, np_dt):
 
 def test_qr_impls_split_the_panel(rng):
     m = torch.from_numpy(rng.standard_normal((2, 10, 4)))
-    for impl in ("householder", "polar"):
+    for impl in ("householder", "cholesky", "polar"):
         q, r = tdec.qr(m, impl)
         torch.testing.assert_close(q @ r, m, rtol=1e-9, atol=1e-9)
         torch.testing.assert_close(q.mT @ q, torch.eye(4, dtype=m.dtype).expand(2, 4, 4),
                                    rtol=1e-9, atol=1e-9)
     with pytest.raises(ValueError):
-        tdec.qr(m, "cholesky")
+        tdec.qr(m, "lu")
 
 
 def _tridiag(rng, B, m):

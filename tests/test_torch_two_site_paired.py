@@ -1,0 +1,49 @@
+"""The port's batched two-site sweep against the JAX package's paired route.
+
+The JAX package's batched accelerator route packs two instances into each
+program of its fused two-site Lanczos kernel (``batched_two_site_sweep_
+paired``, pair=2); here it runs with that kernel in interpret mode, which
+compiles for ~40 s, hence a file of its own.  The port has one route, the
+batch on K2's grid, run here through the kernel's plain-PyTorch twin.
+"""
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from tensornetwork_tpu.models import mpo as jmpo
+from tensornetwork_tpu.parallel import batch as jbatch
+from tensornetwork_tpu_torch import interop
+from tensornetwork_tpu_torch.parallel import batch as tbatch
+
+# The power Ritz solve freezes at a point set by the last bits of T on the
+# first sweep from a random start (tests/test_torch_dmrg.py): 1e-6 relative
+# on the energies; the polar gauge and truncation carry ~1e-6 into the
+# discarded weight and the site tensors' products.
+POWER_ENERGY_RTOL, POWER_TERR_TOL = 1e-6, 1e-6
+
+
+def test_batched_two_site_sweep_matches_the_paired_route(rng):
+    B, N, chi, m = 4, 6, 8, 6
+    As0 = rng.standard_normal((B, N, chi, 2, chi)) / np.sqrt(2 * chi)
+    jm = jmpo.FiniteTFI(1.0, 0.9, N=N, dtype=jnp.float64)
+    tm = interop.mpo_from_numpy(np.asarray(jm.Ws), np.asarray(jm.vL),
+                                np.asarray(jm.vR), device="cpu")
+    jres = jbatch.batched_two_site_sweep_paired(
+        jnp.asarray(As0), jm.Ws, jm.vL, jm.vR, num_krylov_vecs=m, pair=2)
+    tres = tbatch.batched_two_site_sweep(torch.from_numpy(As0), tm.Ws, tm.vL,
+                                         tm.vR, num_krylov_vecs=m)
+    # the paired route's defaults are the port's batched ones
+    np.testing.assert_allclose(tres.energy.numpy(), np.asarray(jres.energy),
+                               rtol=POWER_ENERGY_RTOL)
+    np.testing.assert_allclose(tres.trunc_err.numpy(), np.asarray(jres.trunc_err),
+                               atol=POWER_TERR_TOL)
+    assert tres.renvs.shape == jres.renvs.shape == (B, N - 1, chi, 3, chi)
+    # bond (0, 1) of the returned state: the product of its first two sites
+    # is free of the gauge between them
+    th = np.einsum("pasb,pbtc->pastc", tres.As[:, 0].numpy(),
+                   tres.As[:, 1].numpy())
+    th_j = np.einsum("pasb,pbtc->pastc", np.asarray(jres.As[:, 0]),
+                     np.asarray(jres.As[:, 1]))
+    for b in range(B):
+        s = np.sign(np.sum(th[b] * th_j[b]))
+        np.testing.assert_allclose(s * th[b], th_j[b], atol=1e-5)
