@@ -7,17 +7,21 @@ Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch twin at the shapes its path gives it, and runs the paths of DMRG
 on the transverse-field Ising chain, N=32, d=2, M=3, f32 -- one-site (m=10
 Krylov vectors) at chi=64 single instance and a batch of 256 (resident
-tier), single instance at chi=384, 512, 1024 and 2048 (two-pass, streamed,
+tier), each also with the fused gauge-and-environment epilogue; single
+instance at chi=384, 512, 1024 and 2048 (two-pass, streamed,
 streamed-matvec and XL streamed-matvec tiers); two-site (m=6, subspace
 truncation) on a batch of 256 at chi=64 (resident tier, nt=4) and single
 instance at chi=512 and 1024 (streamed-matvec and XL tiers) -- and checks
 the energies against the converged reference and a small chain against
-exact diagonalisation.
+exact diagonalisation.  Then the batched MPS transfer chain at bench.py's
+shape (B=256, N=32, chi=128, bf16, 8 chained applications) and the
+chained-GEMM probe's 11-shape ladder.
 Every phase prints one JSON line; a failed check exits non-zero.  Needs
 one CUDA card and nvcc; without a card it exits 1 before printing any
 result.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -31,7 +35,7 @@ N, CHI, D, M, KRYLOV, BATCH = 32, 64, 2, 3, 10, 256
 SINGLE_SWEEPS, BATCH_SWEEPS = 8, 8
 # The large-chi one-site paths: (chi, the tier the router must take,
 # sweeps from a random state).
-LARGE_CHI = ((384, "two_pass", 4), (512, "streamed", 4),
+LARGE_CHI = ((384, "two_pass", 3), (512, "streamed", 3),
              (1024, "streamed_matvec", 3), (2048, "streamed_matvec_xl", 3))
 # Kernel launches per large-chi sweep: every site is solved twice.
 TIER_LAUNCHES = {
@@ -47,7 +51,7 @@ NT4_CHI = 512  # K7 at nt=4: the two-site chi=512 path shape
 # Single instance: (chi, the tier two_site_tier must take, sweeps).
 KRYLOV_2S, TRUNC_2S = 6, dict(trunc_impl="subspace", trunc_iters=2,
                               trunc_orth="polar")
-BATCH_SWEEPS_2S = 8
+BATCH_SWEEPS_2S = 6
 LARGE_2S = ((512, "streamed_matvec", 3), (1024, "streamed_matvec_xl", 3))
 # Kernel launches per two-site sweep: every bond is solved twice.
 TIER_LAUNCHES_2S = {tier: {tier: 2 * (N - 1) * KRYLOV_2S}
@@ -77,7 +81,27 @@ DE_2S_HI = DE_HI
 # still catches a TF32 product (~1e-3).
 KERNEL_RTOL = 1e-4
 FP32_PEAK = 67e12   # H100 SXM fp32 outside the tensor cores, FLOP/s
+FP64_PEAK = 34e12   # H100 SXM fp64 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
+# The fused epilogue (K5) on the one-site sweep: one launch per site and
+# direction, and one per site of the first sweep's prepass.
+K5_PER_SWEEP = 2 * N
+# K5 against its twin at the batched path's shape and at B=1, chi=256, the
+# edge of the shapes the route rule admits (chi <= 347 at d=2, M=3).
+K5_SHAPES = ((BATCH, CHI), (1, 256))
+# The transfer chain (K6) at bench.py's shape: B=256, N=32, chi=128, bf16,
+# E0 = I, R=8 chained applications.
+CHAIN_B, CHAIN_CHI, CHAIN_R = 256, 128, 8
+# A bf16 kernel against its twin: the same exact products summed in
+# another order, so a bf16 rounding between steps flips on a near-tie;
+# one bf16 ulp is 2^-8 = 3.9e-3 of the entry, and the later steps carry
+# it.  2e-2 of the largest entry (~5 ulps) still fails a wrong term.
+BF16_RTOL = 2e-2
+# The K9 ladder shape whose times stand in the kernels line: P=16
+# independent 128-tile chains, the TPU transfer-chain kernel's tile
+# structure (benchmarks/mxu_micro.py).
+K9_SHAPE = (128, 128, 128, 16, 60)
 
 
 def emit(**kw):
@@ -179,8 +203,8 @@ def dmrg_sweep_flops(N, chi, d, M, m):
     return 2 * N * per_site
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound(flops, nbytes, peak=FP32_PEAK):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -413,6 +437,12 @@ def k7_phase(torch):
         rel4 = max(max_rel(y4, y40),
                    float((a4 - a40).abs().max() / (x4.norm() * y40.norm())))
         nt4_ms = cuda_ms(torch, lambda: K.streamed_matvec(L4, C4, R4, x4), 10)
+        nt4_plain_ms = cuda_ms(torch, lambda: K.streamed_matvec_plain(
+            L4, C4, R4, x4), 10)
+        # the same matvec as one torch.einsum on solver-layout views
+        sol4 = (L4.permute(0, 3, 1, 2), C4, R4.permute(0, 2, 1, 3),
+                x4.permute(0, 2, 1, 3))
+        nt4_lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(*sol4), 10)
 
         Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
         Vd, abd = K.streamed_lanczos(Ld, Wd, Rd, xd, KRYLOV)
@@ -423,7 +453,8 @@ def k7_phase(torch):
     emit(phase="k7_streamed_matvec", shape=[1, chi, D, M], max_rel_err=rel,
          alpha_rel_err=rel_alpha, alpha_vs_own_y=own_alpha, max_abs_err=err,
          einsum_rel_err=lib_err, nt4_rel_err=rel4, nt4_chi=NT4_CHI,
-         nt4_ms=nt4_ms, nt4_bound_ms=bound(*matvec_work(1, NT4_CHI, 4, M))[0],
+         nt4_ms=nt4_ms, nt4_plain_ms=nt4_plain_ms, nt4_library_ms=nt4_lib_ms,
+         nt4_bound_ms=bound(*matvec_work(1, NT4_CHI, 4, M))[0],
          breakdown_sentinels=sentinels, breakdown_equals_twin=same, ms=ms,
          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
          bound_by=bound_by)
@@ -469,6 +500,8 @@ def k8_phase(torch):
                 del y, y0
             ms = cuda_ms(torch, lambda: K.streamed_matvec_xl(Lt, C, Rt, xt), 10)
             k7_ms = cuda_ms(torch, lambda: K.streamed_matvec(Lt, C, Rt, xt), 10)
+            k7_plain_ms = cuda_ms(torch, lambda: K.streamed_matvec_plain(
+                Lt, C, Rt, xt), 5)
             plain_ms = cuda_ms(torch, lambda: K.streamed_matvec_xl_plain(
                 Lt, C, Rt, xt, pick), 5)
             lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x),
@@ -476,7 +509,8 @@ def k8_phase(torch):
         bound_ms, bound_by = bound(*matvec_work(1, chi, nt, M))
         flops = matvec_work(1, chi, nt, M)[0]
         emit(phase="k8_streamed_matvec_xl", path=label, shape=[1, chi, nt, M],
-             k3_pick=pick, errors=errs, ms=ms, k7_ms=k7_ms, plain_ms=plain_ms,
+             k3_pick=pick, errors=errs, ms=ms, k7_ms=k7_ms,
+             k7_plain_ms=k7_plain_ms, plain_ms=plain_ms,
              library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
              tflops_per_s=flops / ms / 1e9)
         worst = max(max(e["y_rel"], e["alpha_rel"], e["alpha_vs_own_y"])
@@ -534,6 +568,201 @@ def k2_nt4_phase(torch):
     return ms
 
 
+def gauge_env_work(B, chi, d, M, qi, ci, elem=4):
+    """(flops, bytes) of one fused epilogue (K5): per instance qi quintic
+    steps ((4d+2) chi^3 each), ci cubic (4d chi^3), P (2d chi^3), U and
+    Enew (4Md chi^3); W, E, A read once and Q, P, Enew written once."""
+    per = (qi * (4 * d + 2) + ci * 4 * d + 2 * d + 4 * M * d) * chi ** 3
+    nbytes = elem * (B * (2 * M + 2 * d + 1) * chi ** 2 + M * M * d * d)
+    return B * per, nbytes
+
+
+def k5_phase(torch):
+    """K5, the fused gauge-and-environment epilogue, against its twin: at
+    the batched path's shape (B=256, chi=64) and at B=1, chi=256, in both
+    directions, f32; and in f64 at a small shape.  The solver-layout
+    wrappers are checked to return the kernel-layout call's bits."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    ret = None
+    cases = [(B, chi, torch.float32) for B, chi in K5_SHAPES]
+    cases.append((3, 40, torch.float64))
+    for B, chi, dtype in cases:
+        rng = np.random.default_rng(chi + B)
+        dev = torch.device(DEV)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+        env = as_t(rng.standard_normal((B, chi, M, chi)) / chi)
+        W = as_t(rng.standard_normal((M, M, D, D)))
+        A = as_t(rng.standard_normal((B, chi, D, chi)))
+        qi, ci = K.polar_iters(dtype)
+        for side in ("left", "right"):
+            # the operands as the wrappers prepare them
+            if side == "left":
+                Wk, Ak = W, A.permute(0, 2, 1, 3).reshape(B, D * chi, chi)
+            else:
+                Wk = W.permute(1, 0, 2, 3).contiguous()
+                Ak = A.permute(0, 2, 3, 1).reshape(B, D * chi, chi)
+            Ek, Ak = env.permute(0, 2, 1, 3).contiguous(), Ak.contiguous()
+            with highest_precision():
+                out = K.fused_gauge_env(Wk, Ek, Ak, qi, ci)
+                ref = K.fused_gauge_env_plain(Wk, Ek, Ak, qi, ci)
+                wrapped = getattr(K, f"fused_gauge_env_{side}")(env, W, A, qi,
+                                                                ci)
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(t).all()) for t in out),
+                      f"K5 ({side}, B={B}, chi={chi}) output not finite")
+                rels = [max_rel(o, r) for o, r in zip(out, ref)]
+                err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+                Q, P = out[0], out[1]
+                eye = torch.eye(chi, dtype=dtype, device=dev)
+                iso = float((Q.mT @ Q - eye).abs().max())
+                recon = float((Q @ P - Ak).norm() / Ak.norm())
+                ms = cuda_ms(torch, lambda: K.fused_gauge_env(Wk, Ek, Ak, qi,
+                                                              ci), 5)
+                plain_ms = cuda_ms(torch, lambda: K.fused_gauge_env_plain(
+                    Wk, Ek, Ak, qi, ci), 3)
+            Qw = wrapped[0].permute(0, 2, 1, 3) if side == "left" else \
+                wrapped[0].permute(0, 2, 3, 1)
+            Pw = wrapped[1] if side == "left" else wrapped[1].mT
+            same = bool(torch.equal(Qw.reshape(B, D * chi, chi), out[0])
+                        and torch.equal(Pw, out[1])
+                        and torch.equal(wrapped[2].permute(0, 2, 1, 3), out[2]))
+            elem = torch.finfo(dtype).bits // 8
+            flops, nbytes = gauge_env_work(B, chi, D, M, qi, ci, elem)
+            bound_ms, bound_by = bound(flops, nbytes,
+                                       FP32_PEAK if dtype == torch.float32
+                                       else FP64_PEAK)
+            emit(phase="k5_fused_gauge_env", side=side, dtype=str(dtype),
+                 shape=[B, chi, D, M], iters=[qi, ci],
+                 max_rel_err_Q_P_Enew=rels, max_abs_err=err,
+                 isometry_err=iso, reconstruction_rel_err=recon,
+                 wrappers_equal_kernel=same, grid=K.last_grid["fused_gauge_env"],
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 tflops_per_s=flops / ms / 1e9)
+            tol = KERNEL_RTOL if dtype == torch.float32 else 1e-10
+            check(max(rels) <= tol,
+                  f"K5 ({side}, B={B}, chi={chi}, {dtype}) disagrees with "
+                  f"its twin: {rels}")
+            check(iso <= 1e-4 and recon <= 1e-4,
+                  f"K5 ({side}, B={B}, chi={chi}): |Q^T Q - I| {iso}, "
+                  f"|QP - A|/|A| {recon}")
+            check(same, f"K5 {side} wrapper does not return the kernel's bits")
+            if ret is None:
+                ret = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+    return ret
+
+
+def k6_phase(torch):
+    """K6, the transfer chain, at bench.py's shape (B=256, N=32, chi=128,
+    bf16, E0 = I) against its twin, timed per application beside the
+    twin and the same chain as per-site torch.einsum calls in bf16; then
+    in f32 at chi=64.  The R=8 chain is the path: the counts are set to 0
+    just before it runs once and read just after."""
+    from tensornetwork_tpu_torch.ops import kernels as K
+    B, chi, R = CHAIN_B, CHAIN_CHI, CHAIN_R
+    g = torch.Generator(device=DEV).manual_seed(3)
+    As = (torch.randn((B, N, chi, D, chi), generator=g, device=DEV)
+          / np.sqrt(D * chi)).to(torch.bfloat16)
+    E0 = torch.eye(chi, device=DEV, dtype=torch.bfloat16).expand(B, chi, chi)
+
+    def chain(step):
+        E = E0
+        for _ in range(R):
+            E = step(As, E.to(torch.bfloat16))
+        return E
+
+    def einsum_step(As, E):  # bf16 in and out, cuBLAS's f32 accumulation
+        for n in range(As.shape[1]):
+            Y = torch.einsum("Bac,Basb->Bscb", E, As[:, n])
+            E = torch.einsum("Bscb,Bcsp->Bbp", Y, As[:, n])
+        return E
+
+    K.reset_launch_counts()
+    E = chain(K.transfer_chain)
+    launches = K.launch_counts["transfer_chain"]
+    E_plain = chain(K.transfer_chain_plain)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(E).all()) and E.shape == (B, chi, chi),
+          "K6 output not finite or misshapen")
+    rel = max_rel(E, E_plain)
+    lib = chain(einsum_step).float()
+    lib_rel = max_rel(E, lib)
+    one = K.transfer_chain(As, E0)
+    one_rel = max_rel(one, K.transfer_chain_plain(As, E0))
+    err = float((one - K.transfer_chain_plain(As, E0)).abs().max())
+    ms = cuda_ms(torch, lambda: chain(K.transfer_chain), 2) / R
+    plain_ms = cuda_ms(torch, lambda: K.transfer_chain_plain(As, E0), 1)
+    lib_ms = cuda_ms(torch, lambda: einsum_step(As, E0), 2)
+    flops = B * N * 8 * chi ** 3   # d=2: 4 d chi^3 per site
+    nbytes = As.numel() * 2 + B * chi * chi * (2 + 4)
+    bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+
+    # f32 at chi=64
+    g = torch.Generator(device=DEV).manual_seed(4)
+    A32 = torch.randn((16, 8, 64, D, 64), generator=g, device=DEV) / 8.0 / np.sqrt(D)
+    E32 = torch.eye(64, device=DEV).expand(16, 64, 64)
+    rel32 = max_rel(K.transfer_chain(A32, E32), K.transfer_chain_plain(A32, E32))
+    emit(phase="k6_transfer_chain", shape=[B, N, chi, D], dtype="bfloat16",
+         chained=R, launches=launches, max_rel_err_chain=rel,
+         max_rel_err_one=one_rel, max_abs_err=err, einsum_rel_err=lib_rel,
+         f32_chi64_rel_err=rel32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+         bound_ms=bound_ms, bound_by=bound_by, tflops_per_s=flops / ms / 1e9)
+    check(launches == R, f"K6 launches in the chain {launches}, expected {R}")
+    check(max(rel, one_rel) <= BF16_RTOL,
+          f"K6 (bf16) disagrees with its twin: chain {rel}, one {one_rel}")
+    check(rel32 <= KERNEL_RTOL, f"K6 (f32) disagrees with its twin: {rel32}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms), launches
+
+
+def k9_phase(torch):
+    """K9, the chained-GEMM probe: every ladder shape of
+    benchmarks/mxu_micro.py against its twin at reps=2, then timed at its
+    own reps.  The probe's entry point over the ladder is the path: the
+    counts are set to 0 just before and read just after."""
+    from tensornetwork_tpu_torch.benchmarks import mxu_micro as mx
+    from tensornetwork_tpu_torch.ops import kernels as K
+    ladder, ret = [], None
+    inputs = {shape: mx.chain_inputs(*shape[:4], device=DEV)
+              for shape in mx.LADDER}
+    K.reset_launch_counts()
+    sums = []
+    for shape in mx.LADDER:
+        M_, K_, N_, P_, reps = shape
+        sums.append(float(mx.make_chain_kernel(M_, K_, N_, reps, P_)(
+            *inputs[shape])))
+    launches = K.launch_counts["gemm_chain"]
+    check(launches == len(mx.LADDER),
+          f"K9 launches over the ladder {launches}, expected {len(mx.LADDER)}")
+    for shape, total in zip(mx.LADDER, sums):
+        M_, K_, N_, P_, reps = shape
+        x, b, c = inputs[shape]
+        out = K.gemm_chain(x, b, c, 2)
+        ref = K.gemm_chain_plain(x, b, c, 2)
+        torch.cuda.synchronize()
+        rel = max_rel(out.float(), ref.float())
+        err = float((out.float() - ref.float()).abs().max())
+        ms = cuda_ms(torch, lambda: K.gemm_chain(x, b, c, reps), 3)
+        flops = mx.chain_flops(M_, K_, N_, P_, reps)
+        row = dict(shape=list(shape), rel_err=rel, max_abs_err=err, ms=ms,
+                   tflops_per_s=flops / ms / 1e9, sum_abs=total)
+        ladder.append(row)
+        check(rel <= BF16_RTOL and np.isfinite(total),
+              f"K9 {shape} disagrees with its twin: {rel} (sum {total})")
+        if shape == K9_SHAPE:
+            plain_ms = cuda_ms(torch, lambda: K.gemm_chain_plain(x, b, c,
+                                                                 reps), 1)
+            nbytes = 2 * (2 * P_ * M_ * K_ + 2 * K_ * N_)
+            bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+            ret = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    emit(phase="k9_gemm_chain", launches=launches, ladder=ladder,
+         shape_in_kernels_line=list(K9_SHAPE))
+    return ret, launches
+
+
 def state_delta_e(torch, As, mpo64):
     """E - REFERENCE_ENERGY of an MPS stack, evaluated in f64."""
     from tensornetwork_tpu_torch.models.dmrg import mps_mpo_expectation
@@ -546,11 +775,11 @@ def single_phase(torch):
     from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
     mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
     mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
-    runs = [("householder", "fused"), ("polar", "fused"),
-            ("householder", "plain")]
-    out = {}
-    for qr_impl, lanczos_impl in runs:
-        sweeps = SINGLE_SWEEPS if lanczos_impl == "fused" else 3
+    # (qr_impl, lanczos_impl, epilogue_impl)
+    runs = [("householder", "fused", "xla"), ("polar", "fused", "xla"),
+            ("polar", "fused", "fused"), ("householder", "plain", "xla")]
+    for qr_impl, lanczos_impl, epilogue_impl in runs:
+        sweeps = SINGLE_SWEEPS if lanczos_impl == "fused" else 2
         As = random_mps_stack(0, N, CHI, D, dtype=torch.float32)
         renvs, times, energies = None, [], []
         for _ in range(sweeps):
@@ -558,7 +787,8 @@ def single_phase(torch):
             t0 = time.perf_counter()
             res = one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
                                  num_krylov_vecs=KRYLOV, qr_impl=qr_impl,
-                                 lanczos_impl=lanczos_impl, renvs=renvs)
+                                 lanczos_impl=lanczos_impl,
+                                 epilogue_impl=epilogue_impl, renvs=renvs)
             e = float(res.energy)       # synchronises
             times.append(time.perf_counter() - t0)
             energies.append(e)
@@ -568,12 +798,14 @@ def single_phase(torch):
         de = state_delta_e(torch, As, mpo64)
         rate = (len(times) - 1) / sum(times[1:])
         emit(phase="single_instance", qr_impl=qr_impl,
-             lanczos_impl=lanczos_impl, sweeps=sweeps, delta_E=de,
+             lanczos_impl=lanczos_impl, epilogue_impl=epilogue_impl,
+             sweeps=sweeps, delta_E=de,
              ritz_delta_E_per_sweep=[x - REFERENCE_ENERGY for x in energies],
              sweeps_per_s=rate, first_sweep_s=times[0])
         if lanczos_impl == "fused":
             check(DE_LO <= de <= DE_HI,
-                  f"single instance ({qr_impl}) delta E {de} outside window")
+                  f"single instance ({qr_impl}, {epilogue_impl} epilogue) "
+                  f"delta E {de} outside window")
         else:
             check(de >= DE_LO, f"plain route non-variational: {de}")
 
@@ -588,10 +820,16 @@ def device_busy_ms(torch, fn):
     for ev in prof.key_averages():
         total_us += getattr(ev, "self_device_time_total",
                             getattr(ev, "self_cuda_time_total", 0.0))
+    del prof
+    gc.collect()   # the trace's ~10^5 event objects
     return total_us / 1e3
 
 
-def batched_phase(torch):
+def batched_phase(torch, epilogue_impl="xla"):
+    """Chained one-site sweeps of B=256 TFI N=32 chains at chi=64 with the
+    batched defaults, from the same random states for either site
+    epilogue; with ``"fused"`` every site's gauge and environment growth
+    is one K5 launch."""
     from tensornetwork_tpu_torch import FiniteTFI, batched_one_site_sweep
     from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
     from tensornetwork_tpu_torch.ops import kernels as K
@@ -599,50 +837,98 @@ def batched_phase(torch):
     mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
     As = random_mps_stack(1, BATCH * N, CHI, D, dtype=torch.float32).reshape(
         BATCH, N, CHI, D, CHI)
-    renvs, times, per_sweep = None, [], []
+    renvs, times, per_sweep, k5_per_sweep = None, [], [], []
     for _ in range(BATCH_SWEEPS):
-        before = K.launch_counts["fused_lanczos"]
+        before = dict(K.launch_counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = batched_one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
-                                     num_krylov_vecs=KRYLOV, renvs=renvs)
+                                     num_krylov_vecs=KRYLOV,
+                                     epilogue_impl=epilogue_impl, renvs=renvs)
         energy = res.energy.cpu().numpy()   # synchronises
         times.append(time.perf_counter() - t0)
-        per_sweep.append(K.launch_counts["fused_lanczos"] - before)
+        per_sweep.append(K.launch_counts["fused_lanczos"]
+                         - before["fused_lanczos"])
+        k5_per_sweep.append(K.launch_counts["fused_gauge_env"]
+                            - before["fused_gauge_env"])
         As, renvs = res.As, res.renvs
     check(bool(torch.isfinite(As).all()) and res.energies.shape == (BATCH, N),
           "batched state not finite or misshapen")
     check(all(c == 2 * N for c in per_sweep),
           f"K2 launches per batched sweep {per_sweep}, expected {2 * N}")
+    k5_want = ([K5_PER_SWEEP + N] + [K5_PER_SWEEP] * (BATCH_SWEEPS - 1)
+               if epilogue_impl == "fused" else [0] * BATCH_SWEEPS)
+    check(k5_per_sweep == k5_want,
+          f"K5 launches per batched sweep {k5_per_sweep}, expected {k5_want}")
     ritz = energy.astype(np.float64) - REFERENCE_ENERGY
     de = np.array([state_delta_e(torch, a, mpo64) for a in As])
     sweep_s = statistics.median(times[1:])
-    emit(phase="batched", batch=BATCH, sweeps=BATCH_SWEEPS,
+    emit(phase="batched", epilogue_impl=epilogue_impl, batch=BATCH,
+         sweeps=BATCH_SWEEPS,
          delta_E_median=float(np.median(de)), delta_E_min=float(de.min()),
          delta_E_max=float(de.max()),
          instances_in_window=int(np.sum((de >= DE_LO) & (de <= DE_HI))),
          ritz_delta_E_median=float(np.median(ritz)),
          ritz_delta_E_min=float(ritz.min()), ritz_delta_E_max=float(ritz.max()),
          instance_sweeps_per_s=BATCH / sweep_s, sweep_s=times,
-         k2_launches_per_sweep=per_sweep)
+         k2_launches_per_sweep=per_sweep, k5_launches_per_sweep=k5_per_sweep)
     check(bool(np.all((de >= DE_LO) & (de <= DE_HI))),
-          f"batched delta E in [{de.min()}, {de.max()}], outside window")
+          f"batched ({epilogue_impl} epilogue) delta E in [{de.min()}, "
+          f"{de.max()}], outside window")
     return As, renvs, mpo, sweep_s
 
 
-def host_share_phase(torch, As, renvs, mpo, sweep_s, k2_ms):
+def host_share_phase(torch, As, renvs, mpo, sweep_s, k2_ms,
+                     epilogue_impl="xla", k5_ms=0.0):
+    """Device time of one more batched sweep by torch.profiler; returns the
+    device's idle share of the median sweep."""
     from tensornetwork_tpu_torch import batched_one_site_sweep
 
     def one_sweep():
         batched_one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
-                               num_krylov_vecs=KRYLOV, renvs=renvs)
+                               num_krylov_vecs=KRYLOV,
+                               epilogue_impl=epilogue_impl, renvs=renvs)
 
     t0 = time.perf_counter()
     busy_ms = device_busy_ms(torch, one_sweep)
-    emit(phase="batched_device_time", sweep_ms=1e3 * sweep_s,
-         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (1e3 * sweep_s),
-         k2_share=2 * N * k2_ms / (1e3 * sweep_s),
+    idle = 1 - busy_ms / (1e3 * sweep_s)
+    emit(phase="batched_device_time", epilogue_impl=epilogue_impl,
+         sweep_ms=1e3 * sweep_s, device_busy_ms=busy_ms,
+         device_idle_share=idle, k2_share=2 * N * k2_ms / (1e3 * sweep_s),
+         k5_share=K5_PER_SWEEP * k5_ms / (1e3 * sweep_s),
          profile_seconds=time.perf_counter() - t0)
+    return idle
+
+
+def epilogue_ab_phase(torch, mpo, states):
+    """The two site epilogues in turns on one card, so that the host's
+    load, which drifts within a run, falls on both alike: chained B=256
+    sweeps in the order xla, fused, fused, xla, xla, fused, each chain
+    continuing from its own state ``states[impl] = (As, renvs)``.  Per
+    sweep the host's enqueue time (until the sweep function returns) and
+    the wall time (until its energy is on the host)."""
+    from tensornetwork_tpu_torch import batched_one_site_sweep
+    wall, enqueue = {"xla": [], "fused": []}, {"xla": [], "fused": []}
+    for impl in ("xla", "fused", "fused", "xla", "xla", "fused"):
+        As, renvs = states[impl]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = batched_one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
+                                     num_krylov_vecs=KRYLOV,
+                                     epilogue_impl=impl, renvs=renvs)
+        t1 = time.perf_counter()
+        res.energy.cpu()   # synchronises
+        wall[impl].append(time.perf_counter() - t0)
+        enqueue[impl].append(t1 - t0)
+        states[impl] = (res.As, res.renvs)
+    out = {f"{impl}_{k}": v for impl in wall
+           for k, v in (("wall_s", wall[impl]), ("enqueue_s", enqueue[impl]))}
+    rates = {impl: BATCH / statistics.median(wall[impl]) for impl in wall}
+    emit(phase="epilogue_ab", batch=BATCH, chi=CHI, **out,
+         xla_instance_sweeps_per_s=rates["xla"],
+         fused_instance_sweeps_per_s=rates["fused"],
+         fused_over_xla=rates["fused"] / rates["xla"])
+    return rates
 
 
 def two_site_batched_phase(torch, k2_ms):
@@ -835,13 +1121,17 @@ def large_chi_phase(torch, chi, tier, sweeps, solve_ms):
     return launches
 
 
+_KP = "tensornetwork_tpu/ops/kernels.py:"
 KERNELS = (  # name, source, the TPU kernel it replaces
-    ("heff_matvec", "heff_matvec.cu", "kernels.py:48"),
-    ("fused_lanczos", "fused_lanczos.cu", "kernels.py:138"),
-    ("fused_lanczos_2pass", "fused_lanczos_2pass.cu", "kernels.py:278"),
-    ("fused_lanczos_streamed", "fused_lanczos_streamed.cu", "kernels.py:437"),
-    ("streamed_matvec", "streamed_matvec.cu", "kernels.py:1257"),
-    ("streamed_matvec_xl", "streamed_matvec_xl.cu", "kernels.py:1380"))
+    ("heff_matvec", "heff_matvec.cu", _KP + "48"),
+    ("fused_lanczos", "fused_lanczos.cu", _KP + "138"),
+    ("fused_lanczos_2pass", "fused_lanczos_2pass.cu", _KP + "278"),
+    ("fused_lanczos_streamed", "fused_lanczos_streamed.cu", _KP + "437"),
+    ("fused_gauge_env", "fused_gauge_env.cu", _KP + "921"),
+    ("transfer_chain", "transfer_chain.cu", _KP + "1081"),
+    ("streamed_matvec", "streamed_matvec.cu", _KP + "1257"),
+    ("streamed_matvec_xl", "streamed_matvec_xl.cu", _KP + "1380"),
+    ("gemm_chain", "gemm_chain.cu", "benchmarks/mxu_micro.py:30"))
 
 
 def main():
@@ -857,6 +1147,8 @@ def main():
     meas["streamed_matvec"], k7_nt4_ms = k7_phase(torch)
     meas["streamed_matvec_xl"], k8_ms = k8_phase(torch)
     k2_nt4_ms = k2_nt4_phase(torch)
+    meas["fused_gauge_env"] = k5_phase(torch)
+    k2_ms, k5_ms = meas["fused_lanczos"]["ms"], meas["fused_gauge_env"]["ms"]
 
     # the chi=64 path: every count at 0 just before, read just after
     K.reset_launch_counts()
@@ -864,11 +1156,35 @@ def main():
     As, renvs, mpo, sweep_s = batched_phase(torch)
     launches = dict(K.launch_counts)
     emit(phase="main_path_launches", chi=CHI, **launches)
-    check(launches["fused_lanczos"] > 0 and launches["heff_matvec"] > 0,
+    check(launches["fused_lanczos"] > 0 and launches["heff_matvec"] > 0
+          and launches["fused_gauge_env"] > 0,
           f"a kernel of the main path never launched: {launches}")
 
-    host_share_phase(torch, As, renvs, mpo, sweep_s, meas["fused_lanczos"]["ms"])
-    del As, renvs
+    states = {"xla": (As, renvs)}
+
+    # the batched chi=64 path with the fused epilogue, with its own counts
+    K.reset_launch_counts()
+    As, renvs, _, fused_s = batched_phase(torch, "fused")
+    counts = dict(K.launch_counts)
+    emit(phase="fused_epilogue_launches", chi=CHI, **counts)
+    check(counts["fused_gauge_env"] > 0 and counts["fused_lanczos"] > 0,
+          f"a kernel of the fused-epilogue path never launched: {counts}")
+    launches["fused_gauge_env"] += counts["fused_gauge_env"]
+    launches["fused_lanczos"] += counts["fused_lanczos"]
+    states["fused"] = (As, renvs)
+    # the two epilogues in turns, then each one's device time: the traced
+    # sweeps come last, so that no timed sweep runs after a trace
+    ab = epilogue_ab_phase(torch, mpo, states)
+    xla_idle = host_share_phase(torch, *states["xla"], mpo, sweep_s, k2_ms)
+    fused_idle = host_share_phase(torch, *states["fused"], mpo, fused_s,
+                                  k2_ms, "fused", k5_ms)
+    emit(phase="epilogue_compare", batch=BATCH, chi=CHI,
+         xla_instance_sweeps_per_s=BATCH / sweep_s,
+         fused_instance_sweeps_per_s=BATCH / fused_s,
+         fused_over_xla=sweep_s / fused_s,
+         in_turns_fused_over_xla=ab["fused"] / ab["xla"],
+         xla_device_idle_share=xla_idle, fused_device_idle_share=fused_idle)
+    del As, renvs, states
     torch.cuda.empty_cache()
     variational_phase(torch)
 
@@ -899,11 +1215,16 @@ def main():
     launches["fused_lanczos_2pass"] = (launches.pop("fused_lanczos_fact")
                                        + launches.pop("fused_lanczos_replay"))
 
+    # the transfer chain and the chained-GEMM probe, each its own path
+    meas["transfer_chain"], launches["transfer_chain"] = k6_phase(torch)
+    meas["gemm_chain"], launches["gemm_chain"] = k9_phase(torch)
+
     kernels = [dict(name=name, route="cuda",
                     source="tensornetwork_tpu_torch/csrc/" + src,
-                    replaces="tensornetwork_tpu/ops/" + replaces,
-                    launches=launches[name], **meas[name])
+                    replaces=replaces, launches=launches[name], **meas[name])
                for name, src, replaces in KERNELS]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel never launched on its path: {launches}")
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,8 +3,12 @@
 Ported so far: one- and two-site DMRG, single instance and batched.  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
-CUDA for Hopper (``csrc/``); two-site bonds are truncated by the masked SVD
-or the matmul-only subspace iteration.  The package imports torch, numpy
+CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
+growth may run as one fused kernel (``epilogue_impl="fused"``); two-site
+bonds are truncated by the masked SVD or the matmul-only subspace
+iteration.  Beside DMRG: the batched MPS transfer chain
+(``ops.kernels.transfer_chain``) and the chained-GEMM probe
+(``benchmarks.mxu_micro``), each on its own kernel.  The package imports torch, numpy
 and ctypes, never JAX.  Entry points run on the CUDA card unless handed
 CPU tensors or ``device="cpu"``.
 """

@@ -41,6 +41,12 @@ from tensornetwork_tpu_torch.ops import decompositions, kernels, krylov
 QR_IMPL = "householder"   # "householder" | "cholesky" | "polar"
 RITZ_IMPL = "eigh"        # "eigh" | "power"
 LANCZOS_IMPL = "fused"    # "fused" | "plain" (the JAX package's "xla")
+# The one-site site epilogue (gauge shift and environment growth), the
+# JAX package's default and names: "fused" is the fused kernel
+# (kernels.fused_gauge_env_left/right), taken with qr_impl="polar" where
+# kernels.gauge_epilogue_admitted admits the shape; "xla" the gauge
+# factorization of qr_impl and the environment einsums.
+EPILOGUE_IMPL = "xla"     # "xla" | "fused"
 # Two-site bond truncation, the JAX package's module defaults: the exact
 # masked SVD; "subspace" is the warm-started subspace iteration with
 # TRUNC_ITERS steps orthonormalised by TRUNC_ORTH ("qr" | "polar" |
@@ -191,14 +197,31 @@ def _local_solve_2s(Lenv, W1, W2, Renv, theta, num_krylov_vecs: int,
     return evals[:, 0], evecs[:, 0]
 
 
-def _gauge_env_left(Lenv, W, A, qr_impl: str):
+def _fused_epilogue(W, A, qr_impl: str, epilogue_impl: str) -> bool:
+    """Whether the site epilogue runs the fused kernel: the JAX package's
+    condition, ``epilogue_impl == "fused"`` with the polar gauge at a shape
+    the route rule admits."""
+    if epilogue_impl not in ("xla", "fused"):
+        raise ValueError(f"unknown epilogue_impl {epilogue_impl!r}")
+    _, chi, d, _ = A.shape
+    return (epilogue_impl == "fused" and qr_impl == "polar"
+            and kernels.gauge_epilogue_admitted(chi, d, W.shape[-4]))
+
+
+def _gauge_env_left(Lenv, W, A, qr_impl: str, epilogue_impl: str):
     """Gauge-shift right (A = Q.Rm) and grow the left env with Q."""
+    if _fused_epilogue(W, A, qr_impl, epilogue_impl):
+        return kernels.fused_gauge_env_left(Lenv, W, A,
+                                            *kernels.polar_iters(A.dtype))
     Q, Rm = _qr_shift_right(A, qr_impl)
     return Q, Rm, _update_left(Lenv, Q, W)
 
 
-def _gauge_env_right(Renv, W, A, qr_impl: str):
+def _gauge_env_right(Renv, W, A, qr_impl: str, epilogue_impl: str):
     """Gauge-shift left (A = Lm.Q) and grow the right env with Q."""
+    if _fused_epilogue(W, A, qr_impl, epilogue_impl):
+        return kernels.fused_gauge_env_right(Renv, W, A,
+                                             *kernels.polar_iters(A.dtype))
     Lm, Q = _rq_shift_left(A, qr_impl)
     return Q, Lm, _update_right(Renv, Q, W)
 
@@ -209,7 +232,8 @@ def _site(Ws, i: int):
     return Ws[i] if Ws.dim() == 5 else Ws[:, i]
 
 
-def _right_canonicalize_and_envs(As, Ws, vR, R0, qr_impl: str):
+def _right_canonicalize_and_envs(As, Ws, vR, R0, qr_impl: str,
+                                 epilogue_impl: str = "xla"):
     B, N, chi, d, _ = As.shape
     Renv = _boundary_right(B, chi, vR) if R0 is None else R0
     Lm = torch.eye(chi, dtype=As.dtype, device=As.device).expand(B, -1, -1)
@@ -217,21 +241,26 @@ def _right_canonicalize_and_envs(As, Ws, vR, R0, qr_impl: str):
     for i in reversed(range(N)):
         A = _normalize(torch.einsum("Basb,Bbc->Basc", As[:, i], Lm))
         Renvs[i] = Renv
-        Qs[i], Lm, Renv = _gauge_env_right(Renv, _site(Ws, i), A, qr_impl)
+        Qs[i], Lm, Renv = _gauge_env_right(Renv, _site(Ws, i), A, qr_impl,
+                                           epilogue_impl)
     # re-absorb the left-over center factor: site 0 is the center
     Qs[0] = torch.einsum("Bab,Bbsc->Basc", Lm, Qs[0])
     return torch.stack(Qs, 1), torch.stack(Renvs, 1)
 
 
 def right_canonicalize_and_envs(As, Ws, vL, vR, R0=None,
-                                qr_impl: Optional[str] = None):
+                                qr_impl: Optional[str] = None,
+                                epilogue_impl: Optional[str] = None):
     """Bring all sites to right-canonical form and emit the right
     environments ``Renvs[i]`` (of the sites > i), for one instance
-    As (N, chi, d, chi).  ``R0`` overrides the open-boundary right env."""
+    As (N, chi, d, chi).  ``R0`` overrides the open-boundary right env;
+    ``epilogue_impl`` as in :func:`one_site_sweep`."""
     qr_impl = QR_IMPL if qr_impl is None else qr_impl
+    epilogue_impl = EPILOGUE_IMPL if epilogue_impl is None else epilogue_impl
     with highest_precision():
         Qs, Renvs = _right_canonicalize_and_envs(
-            As[None], Ws, vR, None if R0 is None else R0[None], qr_impl)
+            As[None], Ws, vR, None if R0 is None else R0[None], qr_impl,
+            epilogue_impl)
     return Qs[0], Renvs[0]
 
 
@@ -247,7 +276,7 @@ class SweepResult(NamedTuple):
 def _one_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
                          boundary_envs, qr_impl: str, ritz_impl: str,
                          reorth: bool, lanczos_impl: str,
-                         renvs) -> SweepResult:
+                         epilogue_impl: str, renvs) -> SweepResult:
     """One full (left-to-right + right-to-left) one-site sweep of a batch
     As (B, N, chi, d, chi).  ``boundary_envs`` are (B, chi, M, chi)."""
     B, N, chi, d, _ = As.shape
@@ -255,7 +284,7 @@ def _one_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
     if renvs is None:
         As, Renvs = _right_canonicalize_and_envs(
             As, Ws, vR, None if boundary_envs is None else boundary_envs[1],
-            qr_impl)
+            qr_impl, epilogue_impl)
     else:
         # sweep chaining: the previous reverse pass left the stack
         # right-canonical and built exactly these environments
@@ -271,7 +300,8 @@ def _one_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
         _, A_opt = _local_solve_1s(Lenv, W, Renvs[:, i], A, num_krylov_vecs,
                                    ritz_impl, reorth, lanczos_impl)
         Lenvs[i] = Lenv
-        As1[i], Rm, Lenv = _gauge_env_left(Lenv, W, A_opt, qr_impl)
+        As1[i], Rm, Lenv = _gauge_env_left(Lenv, W, A_opt, qr_impl,
+                                           epilogue_impl)
 
     Renv = (_boundary_right(B, chi, vR) if boundary_envs is None
             else boundary_envs[1])
@@ -283,7 +313,8 @@ def _one_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
         Es[i], A_opt = _local_solve_1s(Lenvs[i], W, Renv, A, num_krylov_vecs,
                                        ritz_impl, reorth, lanczos_impl)
         Renvs_out[i] = Renv
-        As2[i], Lm, Renv = _gauge_env_right(Renv, W, A_opt, qr_impl)
+        As2[i], Lm, Renv = _gauge_env_right(Renv, W, A_opt, qr_impl,
+                                            epilogue_impl)
     # re-absorb the final center factor so the stack is the optimized state
     As2[0] = torch.einsum("Bab,Bbsc->Basc", Lm, As2[0])
     Es = torch.stack(Es, 1)
@@ -298,24 +329,27 @@ def one_site_sweep(As, Ws, vL, vR, num_krylov_vecs: int = 10,
                    ritz_impl: Optional[str] = None,
                    reorth: bool = True,
                    lanczos_impl: Optional[str] = None,
+                   epilogue_impl: Optional[str] = None,
                    renvs=None) -> SweepResult:
     """One full one-site DMRG sweep of one instance As (N, chi, d, chi),
     on the device the tensors lie on.
 
     ``boundary_envs``: optional (L0, R0), each (chi, M, chi), replacing the
-    open-boundary environments.  ``qr_impl``/``ritz_impl``/``lanczos_impl``
-    default to :data:`QR_IMPL`/:data:`RITZ_IMPL`/:data:`LANCZOS_IMPL`.
-    ``renvs``: the previous result's ``renvs``, which skips the
-    re-canonicalization prepass."""
+    open-boundary environments.  ``qr_impl``/``ritz_impl``/``lanczos_impl``/
+    ``epilogue_impl`` default to :data:`QR_IMPL`/:data:`RITZ_IMPL`/
+    :data:`LANCZOS_IMPL`/:data:`EPILOGUE_IMPL`; ``epilogue_impl="fused"``
+    takes effect with ``qr_impl="polar"``.  ``renvs``: the previous
+    result's ``renvs``, which skips the re-canonicalization prepass."""
     qr_impl = QR_IMPL if qr_impl is None else qr_impl
     ritz_impl = RITZ_IMPL if ritz_impl is None else ritz_impl
     lanczos_impl = LANCZOS_IMPL if lanczos_impl is None else lanczos_impl
+    epilogue_impl = EPILOGUE_IMPL if epilogue_impl is None else epilogue_impl
     benvs = (None if boundary_envs is None
              else tuple(e[None] for e in boundary_envs))
     with highest_precision():
         res = _one_site_sweep_impl(
             As[None], Ws, vL, vR, num_krylov_vecs, benvs, qr_impl,
-            ritz_impl, reorth, lanczos_impl,
+            ritz_impl, reorth, lanczos_impl, epilogue_impl,
             None if renvs is None else renvs[None])
     return SweepResult(*(t[0] for t in res))
 
@@ -493,11 +527,12 @@ class FiniteDMRG:
         self.truncation_errors: list = []
 
     def _run(self, sweep_fn, num_sweeps: int, num_krylov_vecs: int,
-             tol: float, verbose: int) -> float:
+             tol: float, verbose: int, **knobs) -> float:
         e_prev, renvs = None, None
         for sweep in range(num_sweeps):
             res = sweep_fn(self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
-                           num_krylov_vecs=num_krylov_vecs, renvs=renvs)
+                           num_krylov_vecs=num_krylov_vecs, renvs=renvs,
+                           **knobs)
             self.As, renvs = res.As, res.renvs
             e = float(res.energy)
             self.energies.append(e)
@@ -510,10 +545,13 @@ class FiniteDMRG:
         return self.energies[-1]
 
     def run_one_site(self, num_sweeps: int = 4, num_krylov_vecs: int = 10,
-                     tol: float = 1e-10, verbose: int = 0) -> float:
-        """Run chained one-site sweeps; returns the last energy."""
+                     tol: float = 1e-10, verbose: int = 0,
+                     qr_impl: Optional[str] = None,
+                     epilogue_impl: Optional[str] = None) -> float:
+        """Run chained one-site sweeps; returns the last energy.
+        ``qr_impl`` and ``epilogue_impl`` as in :func:`one_site_sweep`."""
         return self._run(one_site_sweep, num_sweeps, num_krylov_vecs, tol,
-                         verbose)
+                         verbose, qr_impl=qr_impl, epilogue_impl=epilogue_impl)
 
     def run_two_site(self, num_sweeps: int = 4, num_krylov_vecs: int = 10,
                      tol: float = 1e-10, verbose: int = 0) -> float:

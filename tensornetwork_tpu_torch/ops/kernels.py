@@ -39,6 +39,20 @@ The local solve is a ladder of tiers chosen by bond dimension
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 (:func:`fused_lanczos_ground_state_2s`).
 
+Beside the local solve:
+
+* :func:`fused_gauge_env_left` / :func:`fused_gauge_env_right` -- the
+  one-site sweep's polar gauge shift and environment growth in one launch
+  (:func:`fused_gauge_env`, replaces ``make_fused_gauge_env``), taken by
+  the sweep with ``epilogue_impl="fused"`` where
+  :func:`gauge_epilogue_admitted` admits the shape.
+* :func:`transfer_chain` -- the batched MPS norm/overlap environment over
+  a whole chain, E resident on the SM across sites (replaces
+  ``make_transfer_chain``), bf16 or f32 in, f32 out.
+* :func:`gemm_chain` -- chained bf16 GEMMs, the kernel of the issue-rate
+  probe :mod:`tensornetwork_tpu_torch.benchmarks.mxu_micro` (replaces
+  ``benchmarks/mxu_micro.py``'s ``make_chain_kernel``).
+
 Each wrapper runs its plain-PyTorch twin (same algorithm) when handed CPU
 tensors, and launches its kernel, or raises, when handed CUDA tensors.
 ``launch_counts`` counts kernel launches only; ``last_grid`` keeps the
@@ -60,7 +74,8 @@ LARGE = krylov.LARGE
 launch_counts: Dict[str, int] = {
     "heff_matvec": 0, "fused_lanczos": 0, "fused_lanczos_fact": 0,
     "fused_lanczos_replay": 0, "fused_lanczos_streamed": 0,
-    "streamed_matvec": 0, "streamed_matvec_xl": 0}
+    "streamed_matvec": 0, "streamed_matvec_xl": 0, "fused_gauge_env": 0,
+    "transfer_chain": 0, "gemm_chain": 0}
 # blocks of the last launch of each grid-wide (cooperative) kernel
 last_grid: Dict[str, int] = {}
 
@@ -85,6 +100,9 @@ _ARGTYPES = {
                            _I, _I, _I, _I, _P],
     "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
+    "tn_fused_gauge_env": [_P] * 11 + [_I] * 6 + [_P, _P],
+    "tn_transfer_chain": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tn_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
             "tn_fused_lanczos": "fused_lanczos.cu",
@@ -92,8 +110,16 @@ _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
             "tn_fused_lanczos_fact": "fused_lanczos_2pass.cu",
             "tn_fused_lanczos_replay": "fused_lanczos_2pass.cu",
             "tn_streamed_matvec": "streamed_matvec.cu",
-            "tn_streamed_matvec_xl": "streamed_matvec_xl.cu"}
-_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+            "tn_streamed_matvec_xl": "streamed_matvec_xl.cu",
+            "tn_fused_gauge_env": "fused_gauge_env.cu",
+            "tn_transfer_chain": "transfer_chain.cu",
+            "tn_gemm_chain": "gemm_chain.cu"}
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
+           torch.bfloat16: "_bf16"}
+# the input types each C entry point has an instance for
+_TYPES = {name: (torch.float32, torch.float64) for name in _SOURCES}
+_TYPES["tn_transfer_chain"] = (torch.bfloat16, torch.float32)
+_TYPES["tn_gemm_chain"] = (torch.bfloat16,)
 
 
 def reset_launch_counts() -> None:
@@ -825,3 +851,268 @@ def fused_lanczos_ground_state_2s_streamed(L, W1, W2, R, x0,
     evals, y = _streamed_recurrence(Lt, C, Rt, xt, num_krylov_vecs,
                                     ritz_method, power_iters, delta, xl)
     return evals, y.reshape(x0.shape)
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused gauge-and-environment epilogue of the one-site sweep
+# ---------------------------------------------------------------------------
+
+_QUINTIC = (3.4445, -4.7750, 2.0315)  # the Newton-Schulz quintic coefficients
+
+
+def gauge_epilogue_admitted(chi: int, d: int, M: int) -> bool:
+    """Whether the one-site sweep takes the fused epilogue (K5) at bond
+    dimension ``chi``: ``4 chi^2 (2M + 4d + 2Md) <= 12 MiB``.  This is the
+    JAX package's TPU VMEM admission (``vmem.admit_gauge_epilogue``), copied
+    and kept for parity, so that both packages take the same route at the
+    same shape: at d=2, M=3 it admits chi <= 347 (chi=64 and 256 run K5,
+    chi >= 384 the gauge factorization and the env einsums).  It says
+    nothing of the card; re-picking it from the card's times belongs with
+    the tier thresholds (ROADMAP)."""
+    return 4 * chi * chi * (2 * M + 4 * d + 2 * M * d) <= _RESIDENT_BYTES
+
+
+def polar_iters(dtype: torch.dtype) -> Tuple[int, int]:
+    """(quintic, cubic) Newton-Schulz steps of the fused epilogue: (14, 7)
+    in float32, (20, 10) in float64, as the JAX package's sweep takes."""
+    return (14, 7) if dtype == torch.float32 else (20, 10)
+
+
+def _validate_gauge_env(W, E, A) -> Tuple[int, int, int, int]:
+    """Shapes, dtypes, devices and contiguity K5 takes; returns (B, chi, d,
+    M)."""
+    if A.dim() != 3 or E.dim() != 4 or W.dim() != 4:
+        raise ValueError("W (M,M,d,d), E (B,M,chi,chi) and A (B,d*chi,chi) "
+                         "expected; K5 takes one W shared by the batch")
+    B, dchi, chi = A.shape
+    M, d = E.shape[1], W.shape[-1]
+    if (dchi != d * chi or E.shape != (B, M, chi, chi)
+            or W.shape != (M, M, d, d)):
+        raise ValueError(f"shape mismatch: W {tuple(W.shape)}, E "
+                         f"{tuple(E.shape)}, A {tuple(A.shape)}")
+    if M * M * d * d > _MAX_COUPLINGS:
+        raise ValueError(f"{M * M * d * d} couplings exceed the kernel's "
+                         f"{_MAX_COUPLINGS}")
+    ts = (W, E, A)
+    if A.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != A.dtype for t in ts):
+        raise TypeError("W, E, A must share one dtype, float32 or float64; "
+                        f"got {[t.dtype for t in ts]}")
+    if any(t.device != A.device for t in ts):
+        raise ValueError("W, E, A must lie on one device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("W, E, A must be contiguous")
+    return B, chi, d, M
+
+
+def fused_gauge_env_plain(W, E, A, quintic_iters: int = 14,
+                          cubic_iters: int = 7):
+    """Plain-PyTorch twin of :func:`fused_gauge_env` (the TPU kernel's
+    steps, in its order)."""
+    B, dchi, chi = A.shape
+    d = dchi // chi
+    qa, qb, qc = _QUINTIC
+    with highest_precision():
+        nrm = torch.sqrt((A * A).sum(dim=(1, 2), keepdim=True))
+        X = A * (1.0 / (nrm * 1.01 + 1e-30))
+        for _ in range(quintic_iters):
+            G = X.mT @ X
+            X = qa * X + X @ (qb * G + qc * (G @ G))
+        for _ in range(cubic_iters):
+            G = X.mT @ X
+            X = 1.5 * X - 0.5 * (X @ G)
+        P = X.mT @ A
+        Xs = X.reshape(B, d, chi, chi)
+        U = torch.einsum("Btar,Bwac->Bwtrc", Xs, E)          # X_t^T E_w
+        Qvs = torch.einsum("wvst,Bwtrc->Bvsrc", W, U)
+        Enew = torch.einsum("Bvsrc,Bscp->Bvrp", Qvs, Xs)
+    return X, P, Enew
+
+
+def fused_gauge_env(W, E, A, quintic_iters: int = 14, cubic_iters: int = 7):
+    """The fused epilogue on kernel-layout operands: W (M, M, d, d) shared
+    by the batch, E (B, M, chi, chi) [w](in, out), A (B, d*chi, chi) with
+    rows s-major.  Newton-Schulz polar of each panel (``quintic_iters``
+    quintic then ``cubic_iters`` cubic steps), P = X^T A and the grown
+    environment; returns ``(Q (B, d*chi, chi), P (B, chi, chi), Enew (B, M,
+    chi, chi))``.  Counterpart of ``make_fused_gauge_env``."""
+    B, chi, d, M = _validate_gauge_env(W, E, A)
+    if A.device.type == "cpu":
+        return fused_gauge_env_plain(W, E, A, quintic_iters, cubic_iters)
+    kw = dict(dtype=A.dtype, device=A.device)
+    nseg = -(-(d * chi * chi) // _SEG)
+    Q, X2 = torch.empty_like(A), torch.empty_like(A)
+    P, G, Mx = (torch.empty((B, chi, chi), **kw) for _ in range(3))
+    Enew = torch.empty((B, M, chi, chi), **kw)
+    U = torch.empty((B, M * d, chi, chi), **kw)
+    part = torch.empty((B, nseg), **kw)
+    _launch_grid("tn_fused_gauge_env", A.dtype, A.device,
+                 *(t.data_ptr() for t in (W, E, A, Q, P, Enew, X2, G, Mx, U,
+                                          part)),
+                 B, chi, d, M, quintic_iters, cubic_iters)
+    launch_counts["fused_gauge_env"] += 1
+    return Q, P, Enew
+
+
+def fused_gauge_env_left(L, W, A, quintic_iters: int = 14,
+                         cubic_iters: int = 7):
+    """Batched left-moving epilogue: ``A = Q Rm`` (Q left-isometric) and
+    ``Lnew = update_left(L, Q, W)``.  Solver layouts: L (B, a, M, c), W
+    (M, M, s, t), A (B, a, s, b).  Returns ``(Q (B, a, s, r), Rm (B, r,
+    b), Lnew (B, r, M, p))``.  Counterpart of the JAX package's
+    ``fused_gauge_env_left``."""
+    B, chi, M, _ = L.shape
+    d = A.shape[2]
+    E = L.permute(0, 2, 1, 3).contiguous()                   # [w](a, c)
+    Ap = A.permute(0, 2, 1, 3).reshape(B, d * chi, chi)      # rows (s, a)
+    Qp, P, Enew = fused_gauge_env(W.contiguous(), E, Ap.contiguous(),
+                                  quintic_iters, cubic_iters)
+    Q = Qp.reshape(B, d, chi, chi).permute(0, 2, 1, 3)
+    return Q, P, Enew.permute(0, 2, 1, 3)
+
+
+def fused_gauge_env_right(R, W, A, quintic_iters: int = 14,
+                          cubic_iters: int = 7):
+    """Batched right-moving epilogue: ``A = Lm Q`` (Q right-isometric) and
+    ``Rnew = update_right(R, Q, W)``.  Solver layouts: R (B, b, M, d), W
+    (M, M, s, t), A (B, a, s, b).  Returns ``(Q (B, l, s, b), Lm (B, a,
+    l), Rnew (B, l, M, p))``.  The kernel sums the first coupling index
+    and emits the second; update_right sums v and emits w, so W's bond
+    pair is swapped.  Counterpart of the JAX package's
+    ``fused_gauge_env_right``."""
+    B, chi, M, _ = R.shape
+    d = A.shape[2]
+    E = R.permute(0, 2, 1, 3).contiguous()                   # [v](b, d)
+    Ap = A.permute(0, 2, 3, 1).reshape(B, d * chi, chi)      # rows (t, b)
+    Weff = W.permute(1, 0, 2, 3).contiguous()
+    Qp, P, Enew = fused_gauge_env(Weff, E, Ap.contiguous(), quintic_iters,
+                                  cubic_iters)
+    Q = Qp.reshape(B, d, chi, chi).permute(0, 3, 1, 2)
+    return Q, P.mT, Enew.permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# K6: the batched MPS transfer chain
+# ---------------------------------------------------------------------------
+
+_SMEM_BYTES = 232_448   # shared memory one H100 block may use
+_CHAIN_MAX_CHI = 128    # transfer_chain.cu: 16 x 16 threads, 8 x 8 outputs
+
+
+def transfer_chain_plain(As, E0, accum_dtype: torch.dtype = torch.float32):
+    """The chain ``E <- sum_{a,c,s} E[a,c] A_n[a,s,b] A_n[c,s,p]`` over all
+    sites in PyTorch: the counterpart of the JAX package's
+    ``transfer_chain_xla`` and the twin of :func:`transfer_chain`'s kernel.
+    It rounds where the TPU kernel rounds: E is carried in
+    ``accum_dtype`` and cast to the input type before stage 1 at every
+    site, the stage-1 product Y is cast to the input type before stage 2,
+    and the products accumulate in ``accum_dtype`` (the input is widened,
+    so a bf16 x bf16 product is exact)."""
+    in_dt = As.dtype
+    E = E0.to(accum_dtype)
+    with highest_precision():
+        for n in range(As.shape[1]):
+            A = As[:, n].to(accum_dtype)                      # (B, a, s, b)
+            Eb = E.to(in_dt).to(accum_dtype)
+            Y = torch.einsum("Bac,Basb->Bscb", Eb, A).to(in_dt).to(accum_dtype)
+            E = torch.einsum("Bscb,Bcsp->Bbp", Y, A)
+    return E
+
+
+def transfer_chain(As, E0, impl: str = "kernel",
+                   accum_dtype: torch.dtype = torch.float32):
+    """Batched MPS norm/overlap environment over a whole chain.  As (B, N,
+    chi, d, chi) stacked MPS (solver layout), E0 (B, chi, chi); returns E_N
+    (B, chi, chi) in ``accum_dtype``.
+
+    ``impl="kernel"`` launches K6 (one block per instance walks all N sites
+    with E resident in shared memory; bf16 or float32 in, float32
+    accumulation, chi <= 128) for CUDA tensors and runs its twin for CPU
+    tensors; ``impl="plain"`` is :func:`transfer_chain_plain`.  Counterpart
+    of the JAX package's ``transfer_chain``; its ``tile_b``, ``variant``
+    and ``interpret`` choose the layout of the TPU program and are not
+    taken (the variants compute one function)."""
+    if impl == "plain":
+        return transfer_chain_plain(As, E0, accum_dtype)
+    if impl != "kernel":
+        raise ValueError(f"unknown impl {impl!r}")
+    if As.dim() != 5 or As.shape[2] != As.shape[4]:
+        raise ValueError(f"As must be (B, N, chi, d, chi), got {tuple(As.shape)}")
+    B, N, chi, d, _ = As.shape
+    if E0.shape != (B, chi, chi):
+        raise ValueError(f"E0 must be {(B, chi, chi)}, got {tuple(E0.shape)}")
+    if As.dtype not in _TYPES["tn_transfer_chain"]:
+        raise TypeError(f"As must be bfloat16 or float32, got {As.dtype}")
+    if E0.device != As.device:
+        raise ValueError("As and E0 must lie on one device")
+    if As.device.type == "cpu":
+        return transfer_chain_plain(As, E0, accum_dtype)
+    if accum_dtype != torch.float32:
+        raise TypeError("the kernel accumulates in float32")
+    smem = (1 + 2 * d) * chi * chi * As.element_size()
+    if chi > _CHAIN_MAX_CHI or smem > _SMEM_BYTES:
+        raise ValueError(f"chi={chi}, d={d}, {As.dtype}: the kernel takes "
+                         f"chi <= {_CHAIN_MAX_CHI} and (1 + 2d) chi^2 "
+                         f"elements within {_SMEM_BYTES} bytes of shared "
+                         "memory")
+    out = torch.empty((B, chi, chi), dtype=torch.float32, device=As.device)
+    _launch("tn_transfer_chain", As.dtype, As.device,
+            As.contiguous().data_ptr(),
+            E0.to(torch.float32).contiguous().data_ptr(), out.data_ptr(),
+            B, N, chi, d)
+    launch_counts["transfer_chain"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9: chained bf16 GEMMs (the issue-rate probe's kernel)
+# ---------------------------------------------------------------------------
+
+
+def gemm_chain_plain(x, b, c, reps: int):
+    """Plain-PyTorch twin of :func:`gemm_chain`: each product in float32
+    on the widened operands (exact bf16 x bf16 products), rounded to the
+    input type."""
+    with highest_precision():
+        bf, cf = b.float(), c.float()
+        for _ in range(reps):
+            y = (x.float() @ bf).to(x.dtype)
+            x = (y.float() @ cf).to(x.dtype)
+    return x
+
+
+def gemm_chain(x, b, c, reps: int):
+    """P independent chains ``y = bf16(x @ b); x = bf16(y @ c)``, ``reps``
+    times, on x (P, M, K), b (K, N), c (N, K), bfloat16, float32
+    accumulation; returns the last x (P, M, K).  The kernel takes M % 32 ==
+    0 and K, N % 16 == 0.  Counterpart of the Pallas program of the repo's
+    ``benchmarks/mxu_micro.py`` ``make_chain_kernel`` (which sums |x| after
+    it; :mod:`tensornetwork_tpu_torch.benchmarks.mxu_micro` does the
+    same)."""
+    if x.dim() != 3 or b.dim() != 2 or c.dim() != 2:
+        raise ValueError("x (P, M, K), b (K, N), c (N, K) expected")
+    P, M, K = x.shape
+    N = b.shape[1]
+    if b.shape != (K, N) or c.shape != (N, K):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)}")
+    ts = (x, b, c)
+    if any(t.dtype not in _TYPES["tn_gemm_chain"] for t in ts):
+        raise TypeError(f"x, b, c must be bfloat16, got {[t.dtype for t in ts]}")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("x, b, c must lie on one device")
+    if reps < 0:
+        raise ValueError("reps must be >= 0")
+    if x.device.type == "cpu":
+        return gemm_chain_plain(x, b, c, reps)
+    if M % 32 or K % 16 or N % 16:
+        raise ValueError(f"the kernel takes M % 32 == 0 and K, N % 16 == 0; "
+                         f"got M={M}, K={K}, N={N}")
+    if 64 * (K + N) + 8192 > _SMEM_BYTES:
+        raise ValueError(f"K + N = {K + N} exceeds the kernel's shared memory")
+    x, b, c = (t.contiguous() for t in ts)
+    out = torch.empty_like(x)
+    _launch("tn_gemm_chain", torch.bfloat16, x.device, x.data_ptr(),
+            b.data_ptr(), c.data_ptr(), out.data_ptr(), P, M, K, N, reps)
+    launch_counts["gemm_chain"] += 1
+    return out

@@ -22,6 +22,7 @@ def batched_one_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
                            ritz_impl: str = "power",
                            reorth: bool = False,
                            lanczos_impl: str = "fused",
+                           epilogue_impl: Optional[str] = None,
                            renvs=None) -> _dmrg.SweepResult:
     """One one-site sweep over a batch As_batch (B, N, chi, d, chi) with
     one MPO shared by the batch.  Returns a batched
@@ -31,11 +32,16 @@ def batched_one_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
     The batched defaults are the JAX package's: the matmul-only gauge
     (``qr_impl="polar"``), the power Ritz solve and no reorthogonalisation;
     pass ``qr_impl="householder", ritz_impl="eigh"`` for the
-    single-instance choices."""
+    single-instance choices.  ``epilogue_impl`` (default
+    :data:`~tensornetwork_tpu_torch.models.dmrg.EPILOGUE_IMPL`, ``"xla"``):
+    ``"fused"`` runs each site's polar gauge and environment growth as one
+    launch of the fused epilogue kernel, the batch on its grid."""
+    if epilogue_impl is None:
+        epilogue_impl = _dmrg.EPILOGUE_IMPL
     with highest_precision():
         return _dmrg._one_site_sweep_impl(
             As_batch, Ws, vL, vR, num_krylov_vecs, None, qr_impl, ritz_impl,
-            reorth, lanczos_impl, renvs)
+            reorth, lanczos_impl, epilogue_impl, renvs)
 
 
 def batched_one_site_sweep_multi_mpo(As_batch, Ws_batch, vL, vR,
@@ -44,11 +50,13 @@ def batched_one_site_sweep_multi_mpo(As_batch, Ws_batch, vL, vR,
                                      ritz_impl: str = "power",
                                      renvs=None) -> _dmrg.SweepResult:
     """As :func:`batched_one_site_sweep` with one MPO per instance
-    (disorder realizations): ``Ws_batch`` (B, N, M, M, d, d)."""
+    (disorder realizations): ``Ws_batch`` (B, N, M, M, d, d).  The site
+    epilogue is the plain one, as in the JAX package: the fused kernel
+    takes one W shared by the batch."""
     with highest_precision():
         return _dmrg._one_site_sweep_impl(
             As_batch, Ws_batch, vL, vR, num_krylov_vecs, None, qr_impl,
-            ritz_impl, False, "fused", renvs)
+            ritz_impl, False, "fused", "xla", renvs)
 
 
 def batched_two_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
@@ -90,13 +98,16 @@ class BatchedDMRG:
         self.energies = None
 
     def run_one_site(self, num_sweeps: int = 4,
-                     num_krylov_vecs: int = 10) -> torch.Tensor:
-        """Chained sweeps; returns the per-instance energies (B,)."""
+                     num_krylov_vecs: int = 10,
+                     epilogue_impl: Optional[str] = None) -> torch.Tensor:
+        """Chained sweeps; returns the per-instance energies (B,).
+        ``epilogue_impl`` as in :func:`batched_one_site_sweep`."""
         renvs = None
         for _ in range(num_sweeps):
             res = batched_one_site_sweep(
                 self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
-                num_krylov_vecs=num_krylov_vecs, renvs=renvs)
+                num_krylov_vecs=num_krylov_vecs,
+                epilogue_impl=epilogue_impl, renvs=renvs)
             self.As, self.energies, renvs = res.As, res.energy, res.renvs
         return self.energies
 

@@ -325,3 +325,86 @@ def test_svd_masked_on_the_card_is_orthonormal(cuda, dtype):
     assert float((res.vh @ res.vh.mT - eye).abs().max()) < tol
     ref = TD.svd_masked(a.cpu(), 32)
     torch.testing.assert_close(res.s.cpu(), ref.s, rtol=10 * tol, atol=10 * tol)
+
+
+# ---------------------------------------------------------------------------
+# K5 (the fused gauge-and-environment epilogue), K6 (the transfer chain) and
+# K9 (the chained-GEMM probe)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,chi", [(3, 16), (4, 64), (1, 80), (1, 256)])
+def test_fused_gauge_env_kernel_matches_twin(cuda, dtype, B, chi):
+    M, d = 3, 2
+    g = torch.Generator(device=cuda).manual_seed(chi + B)
+    kw = dict(dtype=dtype, device=cuda, generator=g)
+    W = torch.randn((M, M, d, d), **kw)
+    E = torch.randn((B, M, chi, chi), **kw) / chi
+    A = torch.randn((B, d * chi, chi), **kw)
+    qi, ci = TK.polar_iters(dtype)
+    TK.reset_launch_counts()
+    Q, P, Enew = TK.fused_gauge_env(W, E, A, qi, ci)
+    assert TK.launch_counts["fused_gauge_env"] == 1
+    assert TK.last_grid["fused_gauge_env"] >= 1
+    with highest_precision():
+        ref = TK.fused_gauge_env_plain(W, E, A, qi, ci)
+    # the polar steps contract rounding differences: the f32 and f64 gates
+    # of the Lanczos kernels hold
+    for out, want in zip((Q, P, Enew), ref):
+        assert _rel(out, want) < TOL[dtype][1]
+    eye = torch.eye(chi, dtype=dtype, device=cuda)
+    assert float((Q.mT @ Q - eye).abs().max()) < TOL[dtype][1]
+    assert float((Q @ P - A).norm() / A.norm()) < TOL[dtype][1]
+    # fixed-order sums: a second launch gives the same bits
+    Q2, P2, E2 = TK.fused_gauge_env(W, E, A, qi, ci)
+    assert torch.equal(Q, Q2) and torch.equal(P, P2) and torch.equal(Enew, E2)
+
+
+def test_fused_epilogue_sweep_on_the_card_is_variational(cuda):
+    N, chi = 8, 8
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64, device=cuda)
+    exact = np.linalg.eigvalsh(tmpo.mpo_to_dense(mpo))[0]
+    As = tdmrg.random_mps_stack(0, N, chi, 2, dtype=torch.float64, device=cuda)
+    TK.reset_launch_counts()
+    e = tdmrg.FiniteDMRG(As, mpo).run_one_site(
+        num_sweeps=3, num_krylov_vecs=8, qr_impl="polar", epilogue_impl="fused")
+    # the prepass (N) and 2N per sweep, unless a sweep stops early
+    assert TK.launch_counts["fused_gauge_env"] >= 3 * N
+    assert exact - 1e-9 <= e < exact + 1e-8
+
+
+@pytest.mark.parametrize("dtype,chi,d", [(torch.bfloat16, 128, 2),
+                                         (torch.bfloat16, 40, 2),
+                                         (torch.float32, 64, 2),
+                                         (torch.float32, 15, 3)])
+def test_transfer_chain_kernel_matches_twin(cuda, dtype, chi, d):
+    B, N = 3, 5
+    g = torch.Generator(device=cuda).manual_seed(chi + d)
+    As = (torch.randn((B, N, chi, d, chi), device=cuda, generator=g)
+          / (d * chi) ** 0.5).to(dtype)
+    E0 = torch.eye(chi, device=cuda).expand(B, chi, chi)
+    TK.reset_launch_counts()
+    E = TK.transfer_chain(As, E0)
+    assert TK.launch_counts["transfer_chain"] == 1
+    assert E.dtype == torch.float32 and E.shape == (B, chi, chi)
+    ref = TK.transfer_chain_plain(As, E0)
+    # bf16: the same exact products summed in another order; a rounding of
+    # Y flips on a near-tie (one bf16 ulp, 3.9e-3 of an entry)
+    tol = 2e-2 if dtype == torch.bfloat16 else TOL[torch.float32][0]
+    assert _rel(E, ref) < tol
+    assert torch.equal(E, TK.transfer_chain(As, E0))
+
+
+@pytest.mark.parametrize("M,K,N,P,reps", [(32, 16, 16, 1, 1),
+                                          (64, 32, 48, 2, 3),
+                                          (128, 128, 128, 4, 2)])
+def test_gemm_chain_kernel_matches_twin(cuda, M, K, N, P, reps):
+    from tensornetwork_tpu_torch.benchmarks import mxu_micro
+    x, b, c = mxu_micro.chain_inputs(M, K, N, P, device=cuda)
+    TK.reset_launch_counts()
+    out = TK.gemm_chain(x, b, c, reps)
+    assert TK.launch_counts["gemm_chain"] == 1
+    ref = TK.gemm_chain_plain(x, b, c, reps)
+    # bf16 between the steps, as for the transfer chain
+    assert _rel(out.float(), ref.float()) < 2e-2

@@ -99,9 +99,11 @@ def test_every_kernel_has_its_source_and_a_launch_count():
     assert set(kernels._SOURCES.values()) == set(_build.SOURCES)
     # the C entry points are tn_<name>, counted under <name>
     assert {f[3:] for f in kernels._SOURCES} == set(kernels.launch_counts)
+    assert set(kernels._TYPES) == set(kernels._SOURCES)
     for src in _build.SOURCES:
         text = (_build.CSRC / src).read_text()
-        assert "Replaces: tensornetwork_tpu/ops/kernels.py" in text, src
+        assert ("Replaces: tensornetwork_tpu/ops/kernels.py" in text
+                or "Replaces: benchmarks/mxu_micro.py" in text), src
         for fn in (f for f, s in kernels._SOURCES.items() if s == src):
-            assert f'extern "C" int {fn}_f32' in text
-            assert f'extern "C" int {fn}_f64' in text
+            for dtype in kernels._TYPES[fn]:
+                assert f'extern "C" int {fn}{kernels._SUFFIX[dtype]}' in text
