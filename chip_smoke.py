@@ -83,6 +83,7 @@ KERNEL_RTOL = 1e-4
 FP32_PEAK = 67e12   # H100 SXM fp32 outside the tensor cores, FLOP/s
 FP64_PEAK = 34e12   # H100 SXM fp64 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s
+TF32_PEAK = 495e12  # H100 SXM TF32 tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 # The fused epilogue (K5) on the one-site sweep: one launch per site and
 # direction, and one per site of the first sweep's prepass.
@@ -207,6 +208,29 @@ def bound(flops, nbytes, peak=FP32_PEAK):
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def bound_tc(flops, nbytes):
+    """(ms, by) of the least time of an fp32-accurate product by 3xTF32 on
+    the tensor cores: three TF32 products per fp32 product, the route K7
+    and K8 take in f32."""
+    return bound(3 * flops, nbytes, TF32_PEAK)
+
+
+def f64_errors(torch, sol, y, y_twin, y_lib):
+    """Relative (Frobenius) errors against an f64 torch.einsum of the same
+    f32 solver-layout operands ``sol``: of the kernel's y and the twin's
+    (kernel layout) and of the f32 einsum's (solver layout)."""
+    from tensornetwork_tpu_torch.ops import kernels as K
+    ref = K.heff_matvec_reference(*(t.double() for t in sol))
+
+    def err(a):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    out = dict(kernel=err(K.finalize_output(y)),
+               twin=err(K.finalize_output(y_twin)), einsum=err(y_lib))
+    del ref
+    return out
 
 
 def device_phase(torch):
@@ -400,8 +424,10 @@ def k4_phase(torch):
 
 def k7_phase(torch):
     """K7, the streamed matvec, at the one-site chi=1024 path's shapes
-    (nt=2) and at the two-site chi=512 path's (nt=4); the breakdown
-    through the recurrence around it."""
+    (nt=2) and at the two-site chi=512 path's (nt=4): against its twin and
+    against an f64 einsum beside the twin and the f32 einsum, with the
+    stage grids of its f32 GEMMs; the breakdown through the recurrence
+    around it."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     chi = TIER_CHI["streamed_matvec"]
@@ -423,7 +449,9 @@ def k7_phase(torch):
         plain_ms = cuda_ms(torch, lambda: K.streamed_matvec_plain(
             Lt, W_, Rt, xt), 10)
         lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x), 10)
-        lib_err = max_rel(K.finalize_output(y), K.heff_matvec_reference(L, W, R, x))
+        y_lib = K.heff_matvec_reference(L, W, R, x)
+        lib_err = max_rel(K.finalize_output(y), y_lib)
+        f64 = f64_errors(torch, (L, W, R, x), y, y0, y_lib)
 
         # nt=4, the two-site chi=512 path's shape
         g = torch.Generator(device=DEV).manual_seed(8)
@@ -443,35 +471,50 @@ def k7_phase(torch):
         sol4 = (L4.permute(0, 3, 1, 2), C4, R4.permute(0, 2, 1, 3),
                 x4.permute(0, 2, 1, 3))
         nt4_lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(*sol4), 10)
+        f64_4 = f64_errors(torch, sol4, y4, y40, K.heff_matvec_reference(*sol4))
 
         Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
         Vd, abd = K.streamed_lanczos(Ld, Wd, Rd, xd, KRYLOV)
         Vd0, abd0 = K.fused_lanczos_plain(Ld, Wd, Rd, xd, KRYLOV)
     sentinels = breakdown_sentinels(abd, Vd)
     same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
-    bound_ms, bound_by = bound(*matvec_work(1, chi, D, M))
+    work = matvec_work(1, chi, D, M)
+    bound_ms, bound_by = bound(*work)
+    bound_tc_ms = bound_tc(*work)[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit(phase="k7_streamed_matvec", shape=[1, chi, D, M], max_rel_err=rel,
          alpha_rel_err=rel_alpha, alpha_vs_own_y=own_alpha, max_abs_err=err,
-         einsum_rel_err=lib_err, nt4_rel_err=rel4, nt4_chi=NT4_CHI,
+         einsum_rel_err=lib_err, f64_rel_err=f64,
+         grids=K.tc32_grids(chi, D, M, 1, 1, sms), nt4_rel_err=rel4,
+         nt4_chi=NT4_CHI, nt4_f64_rel_err=f64_4,
+         nt4_grids=K.tc32_grids(NT4_CHI, 4, M, 1, 1, sms),
          nt4_ms=nt4_ms, nt4_plain_ms=nt4_plain_ms, nt4_library_ms=nt4_lib_ms,
          nt4_bound_ms=bound(*matvec_work(1, NT4_CHI, 4, M))[0],
+         nt4_bound_tc_ms=bound_tc(*matvec_work(1, NT4_CHI, 4, M))[0],
          breakdown_sentinels=sentinels, breakdown_equals_twin=same, ms=ms,
          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-         bound_by=bound_by)
+         bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+         tflops_per_s=work[0] / ms / 1e9)
     check(max(rel, rel_alpha, own_alpha, rel4) <= KERNEL_RTOL,
           f"K7 disagrees with its twin: y {rel}, alpha {rel_alpha}, "
           f"alpha vs its y {own_alpha}, nt=4 {rel4}")
+    check(f64["kernel"] <= 4 * f64["twin"]
+          and f64_4["kernel"] <= 4 * f64_4["twin"],
+          f"K7 against f64 beyond 4x its f32 twin: {f64}, nt=4 {f64_4}")
     check(sentinels and same, "K7 breakdown sentinels wrong")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms), nt4_ms
+                bound_by=bound_by, library_ms=lib_ms,
+                bound_tc_ms=bound_tc_ms), nt4_ms
 
 
 def k8_phase(torch):
     """K8, the XL streamed matvec, at both of its path shapes -- two-site
     chi=1024 (nt=4) and one-site chi=2048 (nt=2), B=1 -- for K3 = 1, the
-    wrapper's pick and 4, against its twin; timed beside K7 on the same
-    operands, the twin and one torch.einsum of the matvec.  Then the
-    breakdown through the recurrence around it."""
+    wrapper's pick and 4, against its twin and against an f64 einsum
+    beside the twin and the f32 einsum; timed beside K7 on the same
+    operands, the twin and one torch.einsum of the matvec, with the stage
+    grids of its f32 GEMMs.  Then the breakdown through the recurrence
+    around it."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     out, ret = {}, None
@@ -479,10 +522,11 @@ def k8_phase(torch):
                            ("one_site", TIER_CHI["streamed_matvec_xl"], D)):
         (L, W, R, x), (Lt, C, Rt, xt) = hermitian_operands(
             torch, 1, chi, nt, M, seed=chi + nt)
-        pick = K.xl_chunk_count(chi, 1, torch.cuda.get_device_properties(
-            0).multi_processor_count)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        pick = K.xl_chunk_count(chi, nt, M, 1, sms)
         errs = {}
         with highest_precision():
+            y_lib = K.heff_matvec_reference(L, W, R, x)
             for K3 in sorted({1, pick, 4}):
                 y, alpha = K.streamed_matvec_xl(Lt, C, Rt, xt, K3=K3)
                 y0, alpha0 = K.streamed_matvec_xl_plain(Lt, C, Rt, xt, K3)
@@ -496,7 +540,8 @@ def k8_phase(torch):
                     alpha_vs_own_y=float((alpha - (xt * y).sum()).abs().max())
                     / scale,
                     max_abs_err=max(float((y - y0).abs().max()),
-                                    float((alpha - alpha0).abs().max())))
+                                    float((alpha - alpha0).abs().max())),
+                    f64_rel_err=f64_errors(torch, (L, W, R, x), y, y0, y_lib))
                 del y, y0
             ms = cuda_ms(torch, lambda: K.streamed_matvec_xl(Lt, C, Rt, xt), 10)
             k7_ms = cuda_ms(torch, lambda: K.streamed_matvec(Lt, C, Rt, xt), 10)
@@ -506,23 +551,30 @@ def k8_phase(torch):
                 Lt, C, Rt, xt, pick), 5)
             lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x),
                              5)
-        bound_ms, bound_by = bound(*matvec_work(1, chi, nt, M))
-        flops = matvec_work(1, chi, nt, M)[0]
+        work = matvec_work(1, chi, nt, M)
+        bound_ms, bound_by = bound(*work)
+        bound_tc_ms = bound_tc(*work)[0]
         emit(phase="k8_streamed_matvec_xl", path=label, shape=[1, chi, nt, M],
-             k3_pick=pick, errors=errs, ms=ms, k7_ms=k7_ms,
+             k3_pick=pick, grids={K3: K.tc32_grids(chi, nt, M, 1, K3, sms)
+                                  for K3 in errs},
+             errors=errs, ms=ms, k7_ms=k7_ms,
              k7_plain_ms=k7_plain_ms, plain_ms=plain_ms,
              library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-             tflops_per_s=flops / ms / 1e9)
+             bound_tc_ms=bound_tc_ms, tflops_per_s=work[0] / ms / 1e9)
         worst = max(max(e["y_rel"], e["alpha_rel"], e["alpha_vs_own_y"])
                     for e in errs.values())
         check(worst <= KERNEL_RTOL,
               f"K8 ({label}) disagrees with its twin: {errs}")
+        check(all(e["f64_rel_err"]["kernel"] <= 4 * e["f64_rel_err"]["twin"]
+                  for e in errs.values()),
+              f"K8 ({label}) against f64 beyond 4x its f32 twin: {errs}")
         out[label] = ms
         if label == "two_site":
             ret = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()),
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms)
-        del L, W, R, x, Lt, C, Rt, xt
+                       bound_by=bound_by, library_ms=lib_ms,
+                       bound_tc_ms=bound_tc_ms)
+        del L, W, R, x, Lt, C, Rt, xt, y_lib
         torch.cuda.empty_cache()
 
     with highest_precision():
@@ -810,19 +862,26 @@ def single_phase(torch):
             check(de >= DE_LO, f"plain route non-variational: {de}")
 
 
-def device_busy_ms(torch, fn):
-    """Sum of device time (kernels, copies) of fn() by torch.profiler."""
+def device_busy_ms(torch, fn, top=0):
+    """Sum of device time (kernels, copies) of fn() by torch.profiler; with
+    ``top``, also the ``top`` entries that took the most device time, as
+    [name, ms, count]."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    rows = []
     for ev in prof.key_averages():
-        total_us += getattr(ev, "self_device_time_total",
-                            getattr(ev, "self_cuda_time_total", 0.0))
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us:
+            rows.append((us, ev.key[:60], ev.count))
     del prof
     gc.collect()   # the trace's ~10^5 event objects
-    return total_us / 1e3
+    total_ms = sum(r[0] for r in rows) / 1e3
+    if not top:
+        return total_ms
+    return total_ms, [[k, us / 1e3, n] for us, k, n in sorted(rows)[::-1][:top]]
 
 
 def batched_phase(torch, epilogue_impl="xla"):
@@ -1022,7 +1081,7 @@ def two_site_large_phase(torch, chi, tier, sweeps, matvec_ms):
           f"two-site chi={chi}: state not finite or misshapen")
     de = state_delta_e(torch, As, mpo64)
     sweep_s = statistics.median(times[1:])
-    busy_ms = device_busy_ms(torch, lambda: sweep(As, renvs))
+    busy_ms, top = device_busy_ms(torch, lambda: sweep(As, renvs), top=6)
     matvecs = 2 * (N - 1) * KRYLOV_2S
     emit(phase="two_site_large", chi=chi, tier=tier, sweeps=sweeps,
          delta_E=de, ritz_delta_E_per_sweep=[e - REFERENCE_ENERGY
@@ -1032,7 +1091,7 @@ def two_site_large_phase(torch, chi, tier, sweeps, matvec_ms):
          matvec_tflops_per_s=matvecs * matvec_work(1, chi, D * D, M)[0]
          / sweep_s / 1e12,
          kernel_share=matvecs * matvec_ms / (1e3 * sweep_s),
-         device_busy_ms=busy_ms,
+         device_busy_ms=busy_ms, device_top=top,
          device_idle_share=1 - busy_ms / (1e3 * sweep_s),
          launches_per_sweep=per_sweep)
     check(all(c == TIER_LAUNCHES_2S[tier] for c in per_sweep),
@@ -1101,14 +1160,15 @@ def large_chi_phase(torch, chi, tier, sweeps, solve_ms):
           f"chi={chi}: state not finite or misshapen")
     de = state_delta_e(torch, As, mpo64)
     sweep_s = statistics.median(times[1:])
-    busy_ms = device_busy_ms(torch, lambda: one_site_sweep(
-        As, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV, renvs=renvs))
+    busy_ms, top = device_busy_ms(torch, lambda: one_site_sweep(
+        As, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV, renvs=renvs),
+        top=6)
     emit(phase="large_chi", chi=chi, tier=tier, sweeps=sweeps, delta_E=de,
          ritz_delta_E_per_sweep=[e - REFERENCE_ENERGY for e in energies],
          sweeps_per_s=1 / sweep_s, first_sweep_s=times[0], sweep_s=times,
          tflops_per_s=dmrg_sweep_flops(N, chi, D, M, KRYLOV) / sweep_s / 1e12,
          kernel_share=2 * N * solve_ms / (1e3 * sweep_s),
-         device_busy_ms=busy_ms,
+         device_busy_ms=busy_ms, device_top=top,
          device_idle_share=1 - busy_ms / (1e3 * sweep_s),
          launches_per_sweep=per_sweep)
     check(all(c == TIER_LAUNCHES[tier] for c in per_sweep),

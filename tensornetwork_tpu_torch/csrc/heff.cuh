@@ -1,7 +1,8 @@
 // Device code shared by the H_eff matvec kernel (heff_matvec.cu), the fused
 // Lanczos kernel (fused_lanczos.cu), the grid-wide Lanczos kernels
-// (lanczos_grid.cuh) and the streamed matvecs (streamed_matvec.cu,
-// streamed_matvec_xl.cu).
+// (lanczos_grid.cuh), the fused epilogue (fused_gauge_env.cu) and the f64
+// instances of the streamed matvecs (streamed_matvec.cu,
+// streamed_matvec_xl.cu; their f32 instances run on gemm_tc32.cuh).
 //
 // Index conventions (kernel layout, see ops/kernels.py prepare_operands):
 //   Lt[w][c][a]   W[w][v][s][t]   Rt[v][b][d]   x[t][a][b]   ->  y[s][c][d]
@@ -19,7 +20,8 @@
 // tile per 256-thread block, 4x4 outputs per thread, the contraction staged
 // through shared memory in chunks of 32.  No tensor cores: the solver needs
 // true fp32 products (TF32 keeps ~3 decimal digits and breaks the
-// variational bound of the Lanczos projection).
+// variational bound of the Lanczos projection); gemm_tc32.cuh gets them
+// from the tensor cores by 3xTF32.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,30 +1,43 @@
 // One H_eff matvec with any number nt of physical tiles, returning
-// y = L.C.x.R and alpha = <x, y>: the matvec of the chi=1024 one-site tier,
-// whose three-term recurrence runs in PyTorch between calls.
+// y = L.C.x.R and alpha = <x, y>: the matvec of the chi=1024 one-site tier
+// and of the two-site chi=128...512 tier, whose three-term recurrence runs
+// in PyTorch between calls.
 //
 // Replaces: tensornetwork_tpu/ops/kernels.py make_streamed_matvec (the
 // function that reaches its pallas_call).
 //
 // Index conventions (kernel layout):
 //   Lt[w][c][a]   C[w][v][s][t]   Rt[v][b][d]   x[t][a][b]  ->  y[s][c][d]
-// Stage 1:  Q[v][s] = sum_{w,t} C[w,v,s,t] (Lt_w @ x_t)      M*nt GEMMs
-// Stage 2:  y_s = sum_v Q[v][s] @ Rt_v                       M*nt GEMMs
 //
 // What bounds it on the H100: operations.  4*M*nt*chi^3 flops (26 GFLOP
-// at chi=1024, M=3, nt=2) against (2M + 2nt)*chi^2 words in and out
-// (42 MB), ~600 flops per byte in fp32.
+// at one-site chi=1024, M=3, nt=2; 6.4 GFLOP at two-site chi=512, nt=4)
+// against (2M + 2nt)*chi^2 words in and out (42 MB; 13 MB), ~600 and ~500
+// flops per byte in fp32: above the card's ridge for fp32 outside the
+// tensor cores (67 TFLOP/s, 20 flops per byte) and for 3xTF32 on them
+// (3 x 989/2 TFLOP/s of TF32 work per fp32 flop, ~50 flops per byte).
 //
-// Design: the TPU kernel chunks both output axes over its grid and keeps
-// the coupling-folded Q[v, s] of one row chunk in VMEM.  Here Q is
-// M*nt planes of device-memory scratch: stage 1 spreads the 64x64 output
-// tiles of all instances over the grid, and each block folds every
-// L_w x_t tile product through the couplings into the Q tiles it owns
-// (each thread reads and writes only its own outputs, so no barrier).
-// Stage 2 is the pure tile GEMM over the (s, tile) outputs, and each tile
-// writes its share of <x, y> to a fixed slot; a third launch sums the
-// slots of each instance in a fixed order, so alpha is deterministic and
-// no float atomics are used.  Three launches, because stage 2 needs all of
-// an instance's Q, and alpha all of its y.  No tensor cores (heff.cuh).
+// f32 design (gemm_tc32.cuh): two large GEMMs and a fold.  Stage 1 is one
+// (M chi) x (nt chi) GEMM per instance, P = Lt @ [x_0 ... x_nt-1]; the
+// fold pass applies the couplings with one thread per (c, b), reading the
+// M*nt P values and writing the M*nt Q values of its element once (2 M nt
+// chi^2 words, ~100 MB at two-site chi=1024, against ~1.2 GB for folding
+// each tile product into every Q tile it feeds); stage 2 is one chi x (M chi)
+// GEMM per s, y_s = [Q_0s ... Q_(M-1)s] @ Rt, whose tiles write their
+// share of <x, y> to fixed slots, summed in order by a fourth launch.
+// Both GEMMs run on the tensor cores in 3xTF32 (fp32-accurate), their
+// operands streamed through a 3-stage cp.async ring, their tile picked on
+// the host so that each grid covers the card (ops/kernels.py
+// tc32_tile).  No float atomics: a second launch gives the same bits.
+//
+// f64: the SIMT tile GEMM of heff.cuh, as before (3xTF32 is f32 only; no
+// f64 matvec is on a timed path): stage 1 spreads the 64x64 output tiles
+// of all instances over the grid, and each block folds every L_w x_t tile
+// product through the couplings into the Q tiles it owns (each thread
+// reads and writes only its own outputs, so no barrier); stage 2 is the
+// pure tile GEMM over the (s, tile) outputs with the same fixed-slot
+// <x, y>.  The dtype picks the design; nothing f32 reaches the SIMT
+// kernels.
+#include "gemm_tc32.cuh"
 #include "heff.cuh"
 
 namespace {
@@ -113,23 +126,30 @@ int launch(const T* C, long long c_stride, const T* Lt, const T* Rt,
 }  // namespace
 
 // C: (M,M,nt,nt) shared (c_stride 0) or one per instance (c_stride
-// M*M*nt*nt).  Lt, Rt: (B,M,chi,chi); x, y: (B,nt,chi,chi); alpha: (B,);
-// scratch Q: (B,M*nt,chi,chi), part: (B,nt*ntl*ntl) with ntl =
-// ceil(chi/64).  Returns cudaGetLastError() after the launches.
+// M*M*nt*nt).  Lt, Rt: (B,M,chi,chi); x, y: (B,nt,chi,chi); alpha: (B,).
+// f32 scratch: P (B, M*chi, nt*chi), Q (B, nt, chi, M*chi), part (B,
+// stage-2 blocks of tile2); tile1, tile2: the tile of each GEMM stage
+// (tc32::TileCode).  f64 scratch: Q (B, M*nt, chi, chi), part (B,
+// nt*ntl*ntl) with ntl = ceil(chi/64); P, tile1 and tile2 are not read.
+// Returns the first launch error.
 extern "C" int tn_streamed_matvec_f32(const float* C, long long c_stride,
                                       const float* Lt, const float* Rt,
-                                      const float* x, float* Q, float* y,
-                                      float* part, float* alpha, int B,
-                                      int chi, int nt, int M, void* stream) {
-  return launch<float>(C, c_stride, Lt, Rt, x, Q, y, part, alpha, B, chi, nt,
-                       M, (cudaStream_t)stream);
+                                      const float* x, float* P, float* Q,
+                                      float* y, float* part, float* alpha,
+                                      int B, int chi, int nt, int M,
+                                      int tile1, int tile2, void* stream) {
+  return tc32::launch_matvec(C, c_stride, Lt, Rt, x, P, Q, y, part, alpha, B,
+                             chi, nt, M, 1, tile1, tile2,
+                             (cudaStream_t)stream);
 }
 
 extern "C" int tn_streamed_matvec_f64(const double* C, long long c_stride,
                                       const double* Lt, const double* Rt,
-                                      const double* x, double* Q, double* y,
-                                      double* part, double* alpha, int B,
-                                      int chi, int nt, int M, void* stream) {
+                                      const double* x, double* P, double* Q,
+                                      double* y, double* part, double* alpha,
+                                      int B, int chi, int nt, int M,
+                                      int tile1, int tile2, void* stream) {
+  (void)P, (void)tile1, (void)tile2;
   return launch<double>(C, c_stride, Lt, Rt, x, Q, y, part, alpha, B, chi,
                         nt, M, (cudaStream_t)stream);
 }

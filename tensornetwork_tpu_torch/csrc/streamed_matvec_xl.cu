@@ -9,31 +9,39 @@
 //
 // Index conventions (kernel layout):
 //   Lt[w][c][a]   C[w][v][s][t]   Rt[v][b][d]   x[t][a][b]  ->  y[s][c][d]
-// Kernel A:  Qp[k3][v][s] = sum_{w,t} C[w,v,s,t] (Lt_w[:, a in k3] @
-//            x_t[a in k3, :])                          M*nt GEMMs per chunk
-// Kernel B:  y_s = sum_v (sum_k3 Qp[k3][v][s]) @ Rt_v  M*nt GEMMs
 //
 // What bounds it on the H100: operations.  4*M*nt*chi^3 flops (51.5 GFLOP
 // at two-site chi=1024, M=3, nt=4; 206 GFLOP at one-site chi=2048, nt=2)
 // against (2M + 2nt)*chi^2 words in and out (59 MB; 201 MB), ~900 flops per
-// byte in fp32.
+// byte in fp32: far above the ridge of fp32 outside the tensor cores and
+// of 3xTF32 on them.
 //
-// Design: the TPU kernel exists because x alone (16 MB at two-site
-// chi=1024) does not fit VMEM, so kernel A streams x in contraction chunks
-// and revisits one Q block across them, in grid order.  On the card blocks
-// run in no order, so each chunk k3 folds into its own partial slot
-// Qp[k3] (M*nt*K3 planes of device-memory scratch): the block for (output
-// tile, k3, instance) forms L_w x_t over its chunk for every (w, t) and
-// folds each product through the couplings into the Qp[k3] tiles it owns
-// (each thread reads and writes only its own outputs: no atomics, no
-// barrier).  Kernel B, the pure GEMM epilogue, sums the K3 partials in a
-// fixed order (0, 1, ..., K3-1) while it stages its A operand, writes y and
-// one <x, y> share per tile to a fixed slot; a third launch sums the slots
-// of each instance in a fixed order (heff::ordered_sum_kernel), so alpha is
-// deterministic.  K3 multiplies kernel A's grid, which fills the card at a
-// batch of one.  Partial slots are read through plain pointers.  No tensor
-// cores (heff.cuh).  Strides are size_t: at chi=2048, M*nt*K3*chi^2 words
-// exceed 2^31.
+// The TPU kernel exists because x alone (16 MB at two-site chi=1024) does
+// not fit VMEM, so it streams x in contraction chunks and revisits one Q
+// block across them, in grid order.  On the card blocks run in no order,
+// so each chunk k3 writes its own partial slot, and the slots are summed
+// in a fixed order (0, 1, ..., K3-1), so a second launch gives the same
+// bits without float atomics.
+//
+// f32 design (gemm_tc32.cuh): streamed_matvec.cu's two tensor-core GEMMs
+// (3xTF32 on a 3-stage cp.async ring) and fold, with stage 1 run as
+// split-K: the block for (tile, k3, instance) contracts its chunk into the
+// P slot k3 (B*K3*M*nt*chi^2 words of scratch), and the fold pass sums
+// the K3 slots of each element in order before it applies the couplings:
+// each slot is read once, by the bandwidth-bound fold.  K3 only adds
+// blocks to stage 1; ops/kernels.py xl_chunk_count picks 1 where stage 1
+// at 128x128 tiles already gives two blocks per SM -- both path shapes --
+// and there the function is streamed_matvec.cu's.
+//
+// f64: the SIMT tile GEMM of heff.cuh, as before (3xTF32 is f32 only; no
+// f64 matvec is on a timed path): kernel A folds each chunk's products
+// into its own partial slot Qp[k3] (each thread reads and writes only its
+// own outputs), kernel B sums the K3 partials in order while it stages its
+// A operand and writes y and one <x, y> share per tile; a third launch
+// sums the shares in order.  The dtype picks the design; nothing f32
+// reaches the SIMT kernels.  Strides are size_t: at chi=2048,
+// M*nt*K3*chi^2 words exceed 2^31.
+#include "gemm_tc32.cuh"
 #include "heff.cuh"
 
 namespace {
@@ -139,27 +147,33 @@ int launch(const T* C, long long c_stride, const T* Lt, const T* Rt,
 }  // namespace
 
 // C: (M,M,nt,nt) shared (c_stride 0) or one per instance (c_stride
-// M*M*nt*nt).  Lt, Rt: (B,M,chi,chi); x, y: (B,nt,chi,chi); alpha: (B,);
-// scratch Qp: (B,K3,M*nt,chi,chi), part: (B,nt*ntl*ntl) with ntl =
-// ceil(chi/64).  K3 divides chi.  Returns cudaGetLastError() after the
-// launches.
+// M*M*nt*nt).  Lt, Rt: (B,M,chi,chi); x, y: (B,nt,chi,chi); alpha: (B,).
+// K3 divides chi.  f32 scratch: P (B, K3, M*chi, nt*chi), Q (B, nt, chi,
+// M*chi), part (B, stage-2 blocks of tile2); tile1, tile2: the tile of
+// each GEMM stage (tc32::TileCode).  f64 scratch: P holds the partial
+// slots Qp (B, K3, M*nt, chi, chi), part (B, nt*ntl*ntl) with ntl =
+// ceil(chi/64); Q, tile1 and tile2 are not read.  Returns the first
+// launch error.
 extern "C" int tn_streamed_matvec_xl_f32(const float* C, long long c_stride,
                                          const float* Lt, const float* Rt,
-                                         const float* x, float* Qp, float* y,
-                                         float* part, float* alpha, int B,
-                                         int chi, int nt, int M, int K3,
+                                         const float* x, float* P, float* Q,
+                                         float* y, float* part, float* alpha,
+                                         int B, int chi, int nt, int M,
+                                         int K3, int tile1, int tile2,
                                          void* stream) {
-  return launch<float>(C, c_stride, Lt, Rt, x, Qp, y, part, alpha, B, chi,
-                       nt, M, K3, (cudaStream_t)stream);
+  return tc32::launch_matvec(C, c_stride, Lt, Rt, x, P, Q, y, part, alpha, B,
+                             chi, nt, M, K3, tile1, tile2,
+                             (cudaStream_t)stream);
 }
 
 extern "C" int tn_streamed_matvec_xl_f64(const double* C, long long c_stride,
                                          const double* Lt, const double* Rt,
-                                         const double* x, double* Qp,
-                                         double* y, double* part,
+                                         const double* x, double* P,
+                                         double* Q, double* y, double* part,
                                          double* alpha, int B, int chi,
-                                         int nt, int M, int K3,
-                                         void* stream) {
-  return launch<double>(C, c_stride, Lt, Rt, x, Qp, y, part, alpha, B, chi,
+                                         int nt, int M, int K3, int tile1,
+                                         int tile2, void* stream) {
+  (void)Q, (void)tile1, (void)tile2;
+  return launch<double>(C, c_stride, Lt, Rt, x, P, y, part, alpha, B, chi,
                         nt, M, K3, (cudaStream_t)stream);
 }

@@ -36,6 +36,11 @@ The local solve is a ladder of tiers chosen by bond dimension
   stage 1 split into K3 chunks (replaces ``make_streamed_matvec_xl``),
   under the same recurrence.
 
+In f32 these two are two tensor-core GEMMs in 3xTF32 and a coupling fold
+(``csrc/gemm_tc32.cuh``; :func:`tc32_tile` picks each GEMM's tile,
+:func:`tf32x3_matmul_plain` models the product); every other kernel, and
+their f64 instances, are fp32/fp64 SIMT.
+
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 (:func:`fused_lanczos_ground_state_2s`).
 
@@ -96,10 +101,10 @@ _ARGTYPES = {
                               _P, _I, _I, _I, _I, _I, _D, _P, _P],
     "tn_fused_lanczos_replay": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _I, _I, _I, _I, _I, _D, _P, _P],
-    "tn_streamed_matvec": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _P],
-    "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _P],
+    "tn_streamed_matvec": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
+    "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _P],
     "tn_fused_gauge_env": [_P] * 11 + [_I] * 6 + [_P, _P],
     "tn_transfer_chain": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tn_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -593,6 +598,89 @@ def fused_lanczos_replay(Lt, W, Rt, x0, weights, ab, delta: float = 1e-8):
 
 
 # ---------------------------------------------------------------------------
+# The f32 core of K7 and K8: 3xTF32 tensor-core GEMMs (csrc/gemm_tc32.cuh)
+# ---------------------------------------------------------------------------
+
+# the block tiles (BM, BN) of tc32::TileCode 0, 1, 2, largest first
+_TC32_TILES = ((128, 128), (128, 64), (64, 64))
+
+
+def tc32_tile(rows: int, cols: int, groups: int, sms: int) -> int:
+    """The tile code of a GEMM stage of ``groups`` independent rows x cols
+    outputs: the largest tile of :data:`_TC32_TILES` whose grid gives at
+    least 7/8 of the ``sms`` SMs a block (one wave, less a tail that a
+    larger tile's efficiency repays: at one-site chi=1024 stage 2 takes
+    128 blocks of 128x128 on 132 SMs, faster on an H100 than 256 of
+    128x64), else the smallest."""
+    for code, (bm, bn) in enumerate(_TC32_TILES):
+        if 8 * -(-rows // bm) * -(-cols // bn) * groups >= 7 * sms:
+            return code
+    return len(_TC32_TILES) - 1
+
+
+def tc32_grids(chi: int, nt: int, M: int, B: int, K3: int,
+               sms: int) -> Dict[str, Tuple[int, int, int]]:
+    """The f32 streamed matvec's two GEMM stages: per stage (BM, BN,
+    blocks).  Stage 1, P = Lt @ [x_0 .. x_nt-1], has (M chi) x chi outputs
+    per (t, instance, chunk); stage 2, y_s = Q_s @ Rt, chi x chi per (s,
+    instance)."""
+    out = {}
+    for stage, rows, groups in (("stage1", M * chi, nt * B * K3),
+                                ("stage2", chi, nt * B)):
+        bm, bn = _TC32_TILES[tc32_tile(rows, chi, groups, sms)]
+        out[stage] = (bm, bn, -(-rows // bm) * -(-chi // bn) * groups)
+    return out
+
+
+def tf32_rna(a):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32``: half of the 13 dropped bits added to
+    the magnitude on the int32 view, then the 13 bits cleared (finite
+    inputs)."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_matmul_plain(a, b):
+    """Plain model of the kernels' 3xTF32 product ``a @ b`` (float32): each
+    operand split into big = tf32(a) and small = tf32(a - big), and
+    a_small b_big + a_big b_small + a_big b_big summed, small terms first
+    (each product of TF32 values exact in float32).  Not called on any
+    path; the CPU tests state the scheme's error with it."""
+    ab, bb = tf32_rna(a), tf32_rna(b)
+    as_, bs = tf32_rna(a - ab), tf32_rna(b - bb)
+    with highest_precision():
+        return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _matvec_scratch(x, B: int, chi: int, nt: int, M: int, K3: int,
+                    xl: bool):
+    """Scratch of the streamed matvecs' C entry points: (P, Q, part,
+    tile1, tile2).  f32 (gemm_tc32.cuh): P (B, K3, M chi, nt chi), Q (B,
+    nt, chi, M chi), one <x, y> slot per stage-2 block.  f64 (heff.cuh's
+    SIMT kernels): K7's Q (B, M nt, chi, chi) or K8's partial slots in P
+    (B, K3, M nt, chi, chi), one slot per 64 x 64 output tile; the tiles
+    are not read."""
+    kw = dict(dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        sms = _sm_count(x.device)
+        grids = tc32_grids(chi, nt, M, B, K3, sms)
+        P = torch.empty((B, K3, M * chi, nt * chi), **kw)
+        Q = torch.empty((B, nt, chi, M * chi), **kw)
+        part = torch.empty((B, grids["stage2"][2] // B), **kw)
+        tiles = [_TC32_TILES.index(grids[k][:2]) for k in ("stage1", "stage2")]
+        return (P, Q, part, *tiles)
+    ntl = -(-chi // _TILE)
+    slots = torch.empty((B, K3, M * nt, chi, chi), **kw)
+    part = torch.empty((B, nt * ntl * ntl), **kw)
+    return (slots, None, part, 0, 0) if xl else (None, slots, part, 0, 0)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
 # K7: one matvec returning <x, H x>; the recurrence runs around it
 # ---------------------------------------------------------------------------
 
@@ -615,16 +703,13 @@ def streamed_matvec(Lt, C, Rt, x):
     B, chi, nt, M, c_stride = _validate(Lt, C, Rt, x)
     if x.device.type == "cpu":
         return streamed_matvec_plain(Lt, C, Rt, x)
-    kw = dict(dtype=x.dtype, device=x.device)
-    ntl = -(-chi // _TILE)
-    Q = torch.empty((B, M * nt, chi, chi), **kw)
+    P, Q, part, tile1, tile2 = _matvec_scratch(x, B, chi, nt, M, 1, False)
     y = torch.empty_like(x)
-    part = torch.empty((B, nt * ntl * ntl), **kw)
-    alpha = torch.empty((B,), **kw)
+    alpha = torch.empty((B,), dtype=x.dtype, device=x.device)
     _launch("tn_streamed_matvec", x.dtype, x.device,
             C.data_ptr(), c_stride, Lt.data_ptr(), Rt.data_ptr(),
-            x.data_ptr(), Q.data_ptr(), y.data_ptr(), part.data_ptr(),
-            alpha.data_ptr(), B, chi, nt, M)
+            x.data_ptr(), _ptr(P), _ptr(Q), y.data_ptr(), part.data_ptr(),
+            alpha.data_ptr(), B, chi, nt, M, tile1, tile2)
     launch_counts["streamed_matvec"] += 1
     return y, alpha
 
@@ -633,17 +718,20 @@ def streamed_matvec(Lt, C, Rt, x):
 # K8: the same matvec with the contraction of stage 1 split into K3 chunks
 # ---------------------------------------------------------------------------
 
-_XL_MIN_CHUNK = 32   # heff::KC: a chunk holds at least one staged step
-_H100_SMS = 132      # the K3 rule's SM count for CPU tensors
+_XL_MIN_CHUNK = 32   # tc32::BK: a chunk holds at least one ring stage
+_H100_SMS = 132      # the tile and K3 rules' SM count for CPU tensors
 
 
-def xl_chunk_count(chi: int, B: int, sms: int) -> int:
+def xl_chunk_count(chi: int, nt: int, M: int, B: int, sms: int) -> int:
     """K3 of :func:`streamed_matvec_xl`: the smallest power of two that
-    divides ``chi`` and gives kernel A (one block per 64 x 64 output tile,
-    contraction chunk and instance) at least two blocks per SM; where none
-    does, the largest with chunks of at least 32 rows.  Two-site chi=1024
-    at B=1 on 132 SMs: 2; one-site chi=2048: 1."""
-    tiles = (-(-chi // _TILE)) ** 2
+    divides ``chi`` and gives stage 1 (one block per 128 x 128 tile of the
+    (M chi) x (nt chi) product, contraction chunk and instance) at least
+    two blocks per SM -- two waves, one such block fitting an SM; where
+    none does, the largest with chunks of at least 32 rows.  On 132 SMs at
+    M=3, B=1: 1 at two-site chi=1024 (768 blocks) and one-site chi=2048
+    (1536), where the function is :func:`streamed_matvec`'s."""
+    bm, bn = _TC32_TILES[0]
+    tiles = -(-M * chi // bm) * nt * -(-chi // bn)
     counts = list(_chunk_counts(chi, _XL_MIN_CHUNK)) or [1]
     for K3 in counts:
         if tiles * K3 * B >= 2 * sms:
@@ -658,18 +746,19 @@ def _sm_count(device: torch.device) -> int:
 
 
 def streamed_matvec_xl_plain(Lt, C, Rt, x, K3: int):
-    """Plain-PyTorch twin of :func:`streamed_matvec_xl`: for each of the K3
-    contraction chunks, the chunk's products L_w x_t folded through the
-    couplings into a partial Q; the partials summed in chunk order; then
-    y_s = sum_v Q[v, s] R_v and <x, y>."""
+    """Plain-PyTorch twin of :func:`streamed_matvec_xl`, in the kernel's
+    order: for each of the K3 contraction chunks the chunk's products
+    L_w x_t, summed in chunk order into P; then the fold Q[v, s] = sum_{w,t}
+    C[w, v, s, t] P[w, t], y_s = sum_v Q[v, s] R_v and <x, y>.  With K3 = 1
+    these are :func:`heff_matvec_plain`'s steps."""
     chi = x.shape[-1]
     a = chi // K3
-    Q = None
+    P = None
     for k in range(K3):
         sl = slice(k * a, (k + 1) * a)
-        P = torch.matmul(Lt[:, :, None, :, sl], x[:, None, :, sl, :])
-        Qk = torch.einsum(f"{_wspec(C)},Bwtcb->Bvscb", C, P)
-        Q = Qk if Q is None else Q + Qk
+        Pk = torch.matmul(Lt[:, :, None, :, sl], x[:, None, :, sl, :])
+        P = Pk if P is None else P + Pk
+    Q = torch.einsum(f"{_wspec(C)},Bwtcb->Bvscb", C, P)
     y = torch.matmul(Q, Rt[:, :, None]).sum(1)
     return y, _vdot(x, y)
 
@@ -677,28 +766,26 @@ def streamed_matvec_xl_plain(Lt, C, Rt, x, K3: int):
 def streamed_matvec_xl(Lt, C, Rt, x, K3: Optional[int] = None):
     """:func:`streamed_matvec`'s function -- (y, alpha = <x, y>) from the
     same kernel-layout operands -- with the contraction of stage 1 split
-    into ``K3`` chunks, each folded into its own partial Q in device
-    memory, and the partials summed in chunk order by the GEMM stage.
-    ``K3`` (dividing chi) defaults to :func:`xl_chunk_count` for the
-    tensors' card.  Counterpart of ``make_streamed_matvec_xl``; its row and
-    column chunk counts (the TPU's VMEM plan) have no meaning here."""
+    into ``K3`` chunks, each written to its own partial slot in device
+    memory, and the slots summed in chunk order (in f32 by the fold pass,
+    in f64 by the GEMM stage).  ``K3`` (dividing chi) defaults to
+    :func:`xl_chunk_count` for the tensors' card.  Counterpart of
+    ``make_streamed_matvec_xl``; its row and column chunk counts (the
+    TPU's VMEM plan) have no meaning here."""
     B, chi, nt, M, c_stride = _validate(Lt, C, Rt, x)
     if K3 is None:
-        K3 = xl_chunk_count(chi, B, _sm_count(x.device))
+        K3 = xl_chunk_count(chi, nt, M, B, _sm_count(x.device))
     if K3 < 1 or chi % K3:
         raise ValueError(f"K3={K3} must be >= 1 and divide chi={chi}")
     if x.device.type == "cpu":
         return streamed_matvec_xl_plain(Lt, C, Rt, x, K3)
-    kw = dict(dtype=x.dtype, device=x.device)
-    ntl = -(-chi // _TILE)
-    Qp = torch.empty((B, K3, M * nt, chi, chi), **kw)
+    P, Q, part, tile1, tile2 = _matvec_scratch(x, B, chi, nt, M, K3, True)
     y = torch.empty_like(x)
-    part = torch.empty((B, nt * ntl * ntl), **kw)
-    alpha = torch.empty((B,), **kw)
+    alpha = torch.empty((B,), dtype=x.dtype, device=x.device)
     _launch("tn_streamed_matvec_xl", x.dtype, x.device,
             C.data_ptr(), c_stride, Lt.data_ptr(), Rt.data_ptr(),
-            x.data_ptr(), Qp.data_ptr(), y.data_ptr(), part.data_ptr(),
-            alpha.data_ptr(), B, chi, nt, M, K3)
+            x.data_ptr(), _ptr(P), _ptr(Q), y.data_ptr(), part.data_ptr(),
+            alpha.data_ptr(), B, chi, nt, M, K3, tile1, tile2)
     launch_counts["streamed_matvec_xl"] += 1
     return y, alpha
 

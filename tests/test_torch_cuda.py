@@ -165,15 +165,25 @@ def test_two_pass_kernels_match_twins(cuda, dtype, chi):
                            V[:, j])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("chi,nt", [(24, 2), (80, 2), (64, 4), (40, 4)])
-def test_streamed_matvec_kernel_matches_twin(cuda, dtype, chi, nt):
-    B, M = 2, 3
-    g = torch.Generator(device=cuda).manual_seed(chi + nt)
+def _matvec_operands(cuda, dtype, B, chi, nt, per_instance, seed):
+    M = 3
+    g = torch.Generator(device=cuda).manual_seed(seed)
     kw = dict(dtype=dtype, device=cuda, generator=g)
     Lt, Rt = (torch.randn((B, M, chi, chi), **kw) for _ in range(2))
-    C = torch.randn((M, M, nt, nt), **kw)
-    x = torch.randn((B, nt, chi, chi), **kw)
+    C = torch.randn((B, M, M, nt, nt) if per_instance else (M, M, nt, nt),
+                    **kw)
+    return Lt, C, Rt, torch.randn((B, nt, chi, chi), **kw)
+
+
+# chi=200: a ragged edge of the 128, 64 and 32-deep tiles of gemm_tc32.cuh
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chi,nt", [(24, 2), (80, 2), (64, 4), (40, 4),
+                                    (200, 2), (200, 4)])
+@pytest.mark.parametrize("per_instance", [False, True])
+def test_streamed_matvec_kernel_matches_twin(cuda, dtype, chi, nt,
+                                             per_instance):
+    Lt, C, Rt, x = _matvec_operands(cuda, dtype, 2, chi, nt, per_instance,
+                                    chi + nt)
     TK.reset_launch_counts()
     y, alpha = TK.streamed_matvec(Lt, C, Rt, x)
     assert TK.launch_counts["streamed_matvec"] == 1
@@ -185,6 +195,28 @@ def test_streamed_matvec_kernel_matches_twin(cuda, dtype, chi, nt):
     assert float((alpha - alpha0).abs().max()) < TOL[dtype][0] * scale
     # alpha is <x, y> of the kernel's own y
     assert float((alpha - own).abs().max()) < TOL[dtype][0] * scale
+    # no float atomics: a second launch gives the same bits
+    y2, alpha2 = TK.streamed_matvec(Lt, C, Rt, x)
+    assert torch.equal(y, y2) and torch.equal(alpha, alpha2)
+
+
+@pytest.mark.parametrize("chi,nt", [(128, 2), (200, 4), (256, 4)])
+@pytest.mark.parametrize("xl", [False, True])
+def test_streamed_matvec_f32_error_against_f64(cuda, chi, nt, xl):
+    # 3xTF32 keeps fp32 accuracy: y against an f64 einsum of the same f32
+    # operands within 4x the f32 twin's error (one TF32 product: ~1e3x)
+    Lt, C, Rt, x = _matvec_operands(cuda, torch.float32, 1, chi, nt, False,
+                                    7 * chi + nt)
+    y = (TK.streamed_matvec_xl(Lt, C, Rt, x, K3=2) if xl
+         else TK.streamed_matvec(Lt, C, Rt, x))[0]
+    with highest_precision():
+        y0 = TK.streamed_matvec_plain(Lt, C, Rt, x)[0]
+    y64 = TK.streamed_matvec_plain(*(t.double() for t in (Lt, C, Rt, x)))[0]
+
+    def err(a):
+        return float((a.double() - y64).norm() / y64.norm())
+
+    assert err(y) <= 4 * err(y0), (err(y), err(y0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -229,15 +261,13 @@ def test_sweep_through_each_tier_is_variational(cuda, monkeypatch, tier):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("chi,nt", [(64, 4), (80, 2), (128, 4)])
+@pytest.mark.parametrize("chi,nt", [(64, 4), (80, 2), (128, 4), (200, 2)])
 @pytest.mark.parametrize("K3", [1, 2, 4])
-def test_streamed_matvec_xl_kernel_matches_twin(cuda, dtype, chi, nt, K3):
-    B, M = 2, 3
-    g = torch.Generator(device=cuda).manual_seed(chi + nt + K3)
-    kw = dict(dtype=dtype, device=cuda, generator=g)
-    Lt, Rt = (torch.randn((B, M, chi, chi), **kw) for _ in range(2))
-    C = torch.randn((M, M, nt, nt), **kw)
-    x = torch.randn((B, nt, chi, chi), **kw)
+@pytest.mark.parametrize("per_instance", [False, True])
+def test_streamed_matvec_xl_kernel_matches_twin(cuda, dtype, chi, nt, K3,
+                                                per_instance):
+    Lt, C, Rt, x = _matvec_operands(cuda, dtype, 2, chi, nt, per_instance,
+                                    chi + nt + K3)
     TK.reset_launch_counts()
     y, alpha = TK.streamed_matvec_xl(Lt, C, Rt, x, K3=K3)
     assert TK.launch_counts["streamed_matvec_xl"] == 1

@@ -234,7 +234,8 @@ def test_two_site_router_ladder_at_tfi_widths():
 
 
 @pytest.mark.parametrize("kind,nt,plan", [("f32", 4, (2, 2, 2)),
-                                          ("f64", 2, (1, 4, 2))])
+                                          ("f64", 2, (1, 4, 2)),
+                                          ("f32", 2, (1, 4, 1))])
 def test_streamed_matvec_xl_twin_matches_pallas(rng, kind, nt, plan):
     np_dt, t_dt = DTYPES[kind]
     B, chi, M = 2, 32, 2
@@ -291,11 +292,13 @@ def test_streamed_matvec_xl_per_instance_couplings_and_k3_rule(rng):
         torch.testing.assert_close(alpha[b:b + 1], ab, rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="K3"):
         TK.streamed_matvec_xl(*_torch(Lt, Cb, Rt, x), K3=3)
-    # the K3 rule: two blocks of kernel A per SM of an H100 (132 SMs)
-    assert TK.xl_chunk_count(1024, 1, 132) == 2
-    assert TK.xl_chunk_count(2048, 1, 132) == 1
-    assert TK.xl_chunk_count(1024, 4, 132) == 1
-    assert TK.xl_chunk_count(64, 1, 132) == 2   # capped: chunks >= 32 rows
+    # the K3 rule: two blocks of stage 1 (128 x 128 tiles of the (M chi) x
+    # (nt chi) product) per SM of an H100 (132 SMs)
+    assert TK.xl_chunk_count(1024, 4, 3, 1, 132) == 1   # 768 blocks
+    assert TK.xl_chunk_count(2048, 2, 3, 1, 132) == 1   # 1536 blocks
+    assert TK.xl_chunk_count(1024, 4, 3, 4, 132) == 1
+    assert TK.xl_chunk_count(512, 2, 3, 1, 132) == 4    # 96 blocks a chunk
+    assert TK.xl_chunk_count(64, 4, 3, 1, 132) == 2   # capped: chunks >= 32 rows
 
 
 # ---------------------------------------------------------------------------
