@@ -14,8 +14,9 @@ truncation) on a batch of 256 at chi=64 (resident tier, nt=4) and single
 instance at chi=512 and 1024 (streamed-matvec and XL tiers) -- and checks
 the energies against the converged reference and a small chain against
 exact diagonalisation.  Then the batched MPS transfer chain at bench.py's
-shape (B=256, N=32, chi=128, bf16, 8 chained applications) and the
-chained-GEMM probe's 11-shape ladder.
+shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
+"resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
+64 f32), and the chained-GEMM probe's 11-shape ladder.
 Every phase prints one JSON line; a failed check exits non-zero.  Needs
 one CUDA card and nvcc; without a card it exits 1 before printing any
 result.  The last line is
@@ -94,6 +95,11 @@ K5_SHAPES = ((BATCH, CHI), (1, 256))
 # The transfer chain (K6) at bench.py's shape: B=256, N=32, chi=128, bf16,
 # E0 = I, R=8 chained applications.
 CHAIN_B, CHAIN_CHI, CHAIN_R = 256, 128, 8
+# K6's route "tiled" against its twin: (chi, dtype) at B=16, N=8 -- the
+# shapes the resident route cannot hold (chi > 128; f32)
+CHAIN_TILED = ((256, "bfloat16"), (256, "float32"), (128, "float32"),
+               (64, "float32"))
+CHAIN_TILED_B, CHAIN_TILED_N = 16, 8
 # A bf16 kernel against its twin: the same exact products summed in
 # another order, so a bf16 rounding between steps flips on a near-tie;
 # one bf16 ulp is 2^-8 = 3.9e-3 of the entry, and the later steps carry
@@ -103,6 +109,8 @@ BF16_RTOL = 2e-2
 # independent 128-tile chains, the TPU transfer-chain kernel's tile
 # structure (benchmarks/mxu_micro.py).
 K9_SHAPE = (128, 128, 128, 16, 60)
+# kernels listed per traced sweep (device time by kernel)
+DEVICE_TOP = 8
 
 
 def emit(**kw):
@@ -149,18 +157,18 @@ def hermitian_operands(torch, B, chi, d, M, seed):
     return solver, K.prepare_operands(*solver)
 
 
-def breakdown_operands(torch, B, chi):
-    """A diagonal operator in kernel layout and B starts: B-1 product
-    states (eigenvectors, so the chain dies at step 0) and a zero start
-    (dead from step 0)."""
+def breakdown_operands(torch, B, chi, nt=D):
+    """A diagonal operator in kernel layout with nt physical tiles and B
+    starts: B-1 product states (eigenvectors, so the chain dies at step 0)
+    and a zero start (dead from step 0)."""
     dev = torch.device(DEV)
-    Wd = torch.zeros((M, M, D, D), device=dev)
-    Wd[0, 0] = torch.eye(D, device=dev)
+    Wd = torch.zeros((M, M, nt, nt), device=dev)
+    Wd[0, 0] = torch.eye(nt, device=dev)
     Ld = torch.zeros((B, M, chi, chi), device=dev)
     Ld[:, 0] = torch.diag(torch.arange(1.0, chi + 1.0, device=dev))
     Rd = torch.zeros((B, M, chi, chi), device=dev)
     Rd[:, 0] = torch.eye(chi, device=dev)
-    xd = torch.zeros((B, D, chi, chi), device=dev)
+    xd = torch.zeros((B, nt, chi, chi), device=dev)
     xd[:, 0, 0, 0] = 3.0
     xd[B - 1] = 0.0
     return Ld, Wd, Rd, xd
@@ -233,6 +241,22 @@ def f64_errors(torch, sol, y, y_twin, y_lib):
     return out
 
 
+def lanczos_f64_errors(torch, ops, V, ab, V0, ab0, m):
+    """Relative (Frobenius) errors of the kernel's (V, ab) and the f32
+    twin's against an f64 run of fused_lanczos_plain on the same f32
+    kernel-layout operands ``ops``."""
+    from tensornetwork_tpu_torch.ops import kernels as K
+    V64, ab64 = K.fused_lanczos_plain(*(t.double() for t in ops), m)
+
+    def err(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    out = dict(kernel_ab=err(ab, ab64), twin_ab=err(ab0, ab64),
+               kernel_V=err(V, V64), twin_V=err(V0, V64))
+    del V64
+    return out
+
+
 def device_phase(torch):
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -283,9 +307,14 @@ def k1_phase(torch):
 
 
 def k2_phase(torch):
+    """K2, the fused Lanczos, at the batched one-site path's shape (B=256,
+    chi=64, m=10): against its twin and against an f64 run of the twin
+    (the 3xTF32 kernel within 4x the f32 twin's error), a repeat launch
+    bit for bit, the breakdown chains bit for bit."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
-    _, (Lt, W, Rt, xt) = hermitian_operands(torch, BATCH, CHI, D, M, seed=2)
+    _, ops = hermitian_operands(torch, BATCH, CHI, D, M, seed=2)
+    Lt, W, Rt, xt = ops
     with highest_precision():
         V, ab = K.fused_lanczos(Lt, W, Rt, xt, KRYLOV)
         V0, ab0 = K.fused_lanczos_plain(Lt, W, Rt, xt, KRYLOV)
@@ -294,7 +323,11 @@ def k2_phase(torch):
               "K2 output not finite")
         rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
         err = max(float((ab - ab0).abs().max()), float((V - V0).abs().max()))
-        ms = cuda_ms(torch, lambda: K.fused_lanczos(Lt, W, Rt, xt, KRYLOV), 5)
+        V2, ab2 = K.fused_lanczos(Lt, W, Rt, xt, KRYLOV)
+        repeat = bool(torch.equal(V, V2) and torch.equal(ab, ab2))
+        del V2, ab2
+        f64 = lanczos_f64_errors(torch, ops, V, ab, V0, ab0, KRYLOV)
+        ms = cuda_ms(torch, lambda: K.fused_lanczos(Lt, W, Rt, xt, KRYLOV), 10)
         plain_ms = cuda_ms(
             torch, lambda: K.fused_lanczos_plain(Lt, W, Rt, xt, KRYLOV), 3)
 
@@ -305,16 +338,22 @@ def k2_phase(torch):
     same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
     flops, nbytes = lanczos_work(BATCH, CHI, KRYLOV, KRYLOV)
     bound_ms, bound_by = bound(flops, nbytes)
+    bound_tc_ms = bound_tc(flops, nbytes)[0]
     emit(phase="k2_fused_lanczos", shape=[BATCH, CHI, D, M, KRYLOV],
          max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, max_abs_err=err,
+         f64_rel_err=f64, repeat_same_bits=repeat,
          breakdown_sentinels=sentinels, breakdown_equals_twin=same, ms=ms,
          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-         gflops_per_s=flops / ms / 1e6)
+         bound_tc_ms=bound_tc_ms, tflops_per_s=flops / ms / 1e9)
     check(rel_ab <= KERNEL_RTOL and rel_V <= KERNEL_RTOL,
           f"K2 disagrees with its twin: ab {rel_ab}, V {rel_V}")
+    check(f64["kernel_ab"] <= 4 * f64["twin_ab"]
+          and f64["kernel_V"] <= 4 * f64["twin_V"],
+          f"K2 against f64 beyond 4x its f32 twin: {f64}")
+    check(repeat, "K2: a repeat launch gave other bits")
     check(sentinels and same, "K2 breakdown sentinels wrong")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, bound_tc_ms=bound_tc_ms)
 
 
 def k3_phase(torch):
@@ -592,11 +631,13 @@ def k8_phase(torch):
 
 def k2_nt4_phase(torch):
     """K2 with nt=4 physical tiles, the two-site resident tier: B=256,
-    chi=64, m=6, against its twin."""
+    chi=64, m=6, against its twin and an f64 run of it, a repeat launch
+    and the breakdown chains, bit for bit."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     nt = D * D
-    _, (Lt, C, Rt, xt) = hermitian_operands(torch, BATCH, CHI, nt, M, seed=24)
+    _, ops = hermitian_operands(torch, BATCH, CHI, nt, M, seed=24)
+    Lt, C, Rt, xt = ops
     with highest_precision():
         V, ab = K.fused_lanczos(Lt, C, Rt, xt, KRYLOV_2S)
         V0, ab0 = K.fused_lanczos_plain(Lt, C, Rt, xt, KRYLOV_2S)
@@ -604,19 +645,37 @@ def k2_nt4_phase(torch):
         check(bool(torch.isfinite(V).all() and torch.isfinite(ab).all()),
               "K2 (nt=4) output not finite")
         rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
-        ms = cuda_ms(torch, lambda: K.fused_lanczos(Lt, C, Rt, xt, KRYLOV_2S), 5)
+        V2, ab2 = K.fused_lanczos(Lt, C, Rt, xt, KRYLOV_2S)
+        repeat = bool(torch.equal(V, V2) and torch.equal(ab, ab2))
+        del V2, ab2
+        f64 = lanczos_f64_errors(torch, ops, V, ab, V0, ab0, KRYLOV_2S)
+        ms = cuda_ms(torch, lambda: K.fused_lanczos(Lt, C, Rt, xt, KRYLOV_2S), 10)
         plain_ms = cuda_ms(torch, lambda: K.fused_lanczos_plain(
             Lt, C, Rt, xt, KRYLOV_2S), 3)
+        Ld, Cd, Rd, xd = breakdown_operands(torch, 4, CHI, nt)
+        Vd, abd = K.fused_lanczos(Ld, Cd, Rd, xd, KRYLOV_2S)
+        Vd0, abd0 = K.fused_lanczos_plain(Ld, Cd, Rd, xd, KRYLOV_2S)
+    sentinels = breakdown_sentinels(abd, Vd)
+    same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
     flops, _ = matvec_work(BATCH, CHI, nt, M)
     flops = KRYLOV_2S * (flops + 10 * BATCH * nt * CHI * CHI)
     nbytes = 4 * (BATCH * ((2 * M + nt + KRYLOV_2S * nt) * CHI ** 2
                            + 2 * KRYLOV_2S) + M * M * nt * nt)
     bound_ms, bound_by = bound(flops, nbytes)
+    bound_tc_ms = bound_tc(flops, nbytes)[0]
     emit(phase="k2_fused_lanczos_nt4", shape=[BATCH, CHI, nt, M, KRYLOV_2S],
-         max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, gflops_per_s=flops / ms / 1e6)
+         max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, f64_rel_err=f64,
+         repeat_same_bits=repeat, breakdown_sentinels=sentinels,
+         breakdown_equals_twin=same, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+         tflops_per_s=flops / ms / 1e9)
     check(rel_ab <= KERNEL_RTOL and rel_V <= KERNEL_RTOL,
           f"K2 (nt=4) disagrees with its twin: ab {rel_ab}, V {rel_V}")
+    check(f64["kernel_ab"] <= 4 * f64["twin_ab"]
+          and f64["kernel_V"] <= 4 * f64["twin_V"],
+          f"K2 (nt=4) against f64 beyond 4x its f32 twin: {f64}")
+    check(repeat, "K2 (nt=4): a repeat launch gave other bits")
+    check(sentinels and same, "K2 (nt=4) breakdown sentinels wrong")
     return ms
 
 
@@ -706,14 +765,37 @@ def k5_phase(torch):
     return ret
 
 
+def chain_work(B, N, chi, d, elem):
+    """(flops, bytes) of one transfer chain: 4 d chi^3 per site and
+    instance; the site tensors (elem bytes) and E0 read once (in the input
+    type), E_N written once in f32."""
+    return (B * N * 4 * d * chi ** 3,
+            B * N * d * chi * chi * elem + B * chi * chi * (elem + 4))
+
+
+def einsum_chain_step(torch, As, E):
+    """The chain as per-site torch.einsum calls in the input type (cuBLAS,
+    f32 accumulation), the yardstick of K6."""
+    E = E.to(As.dtype)
+    for n in range(As.shape[1]):
+        Y = torch.einsum("Bac,Basb->Bscb", E, As[:, n])
+        E = torch.einsum("Bscb,Bcsp->Bbp", Y, As[:, n])
+    return E
+
+
 def k6_phase(torch):
     """K6, the transfer chain, at bench.py's shape (B=256, N=32, chi=128,
-    bf16, E0 = I) against its twin, timed per application beside the
-    twin and the same chain as per-site torch.einsum calls in bf16; then
-    in f32 at chi=64.  The R=8 chain is the path: the counts are set to 0
-    just before it runs once and read just after."""
+    bf16, E0 = I) on its route "resident", against its twin, timed per
+    application beside the twin and the same chain as per-site
+    torch.einsum calls in bf16.  The R=8 chain is the path: the counts are
+    set to 0 just before it runs once and read just after.  Then the
+    route "tiled" at CHAIN_TILED against the twin, each timed beside the
+    twin and the einsum chain, with its bound."""
+    from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     B, chi, R = CHAIN_B, CHAIN_CHI, CHAIN_R
+    route = K.transfer_chain_route(chi, D, torch.bfloat16)
+    check(route == "resident", f"K6 at bench.py's shape takes {route}")
     g = torch.Generator(device=DEV).manual_seed(3)
     As = (torch.randn((B, N, chi, D, chi), generator=g, device=DEV)
           / np.sqrt(D * chi)).to(torch.bfloat16)
@@ -725,46 +807,74 @@ def k6_phase(torch):
             E = step(As, E.to(torch.bfloat16))
         return E
 
-    def einsum_step(As, E):  # bf16 in and out, cuBLAS's f32 accumulation
-        for n in range(As.shape[1]):
-            Y = torch.einsum("Bac,Basb->Bscb", E, As[:, n])
-            E = torch.einsum("Bscb,Bcsp->Bbp", Y, As[:, n])
-        return E
-
     K.reset_launch_counts()
     E = chain(K.transfer_chain)
     launches = K.launch_counts["transfer_chain"]
+    routes = dict(K.route_counts)
     E_plain = chain(K.transfer_chain_plain)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(E).all()) and E.shape == (B, chi, chi),
           "K6 output not finite or misshapen")
     rel = max_rel(E, E_plain)
-    lib = chain(einsum_step).float()
+    lib = chain(lambda A, E: einsum_chain_step(torch, A, E)).float()
     lib_rel = max_rel(E, lib)
     one = K.transfer_chain(As, E0)
-    one_rel = max_rel(one, K.transfer_chain_plain(As, E0))
-    err = float((one - K.transfer_chain_plain(As, E0)).abs().max())
+    one_plain = K.transfer_chain_plain(As, E0)
+    one_rel = max_rel(one, one_plain)
+    err = float((one - one_plain).abs().max())
+    repeat = bool(torch.equal(one, K.transfer_chain(As, E0)))
     ms = cuda_ms(torch, lambda: chain(K.transfer_chain), 2) / R
     plain_ms = cuda_ms(torch, lambda: K.transfer_chain_plain(As, E0), 1)
-    lib_ms = cuda_ms(torch, lambda: einsum_step(As, E0), 2)
-    flops = B * N * 8 * chi ** 3   # d=2: 4 d chi^3 per site
-    nbytes = As.numel() * 2 + B * chi * chi * (2 + 4)
+    lib_ms = cuda_ms(torch, lambda: einsum_chain_step(torch, As, E0), 2)
+    flops, nbytes = chain_work(B, N, chi, D, 2)
     bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+    del As, E0, E, E_plain, lib, one, one_plain
 
-    # f32 at chi=64
-    g = torch.Generator(device=DEV).manual_seed(4)
-    A32 = torch.randn((16, 8, 64, D, 64), generator=g, device=DEV) / 8.0 / np.sqrt(D)
-    E32 = torch.eye(64, device=DEV).expand(16, 64, 64)
-    rel32 = max_rel(K.transfer_chain(A32, E32), K.transfer_chain_plain(A32, E32))
+    tiled = []
+    for c, dt in CHAIN_TILED:
+        dtype = getattr(torch, dt)
+        rt = K.transfer_chain_route(c, D, dtype)
+        A2 = (torch.randn((CHAIN_TILED_B, CHAIN_TILED_N, c, D, c), generator=g,
+                          device=DEV) / np.sqrt(D * c)).to(dtype)
+        E2 = torch.eye(c, device=DEV).expand(CHAIN_TILED_B, c, c)
+        K.reset_launch_counts()
+        out = K.transfer_chain(A2, E2)
+        counted = dict(K.route_counts)
+        ref = K.transfer_chain_plain(A2, E2)
+        rel2 = max_rel(out, ref)
+        same2 = bool(torch.equal(out, K.transfer_chain(A2, E2)))
+        t = cuda_ms(torch, lambda: K.transfer_chain(A2, E2), 5)
+        t_plain = cuda_ms(torch, lambda: K.transfer_chain_plain(A2, E2), 2)
+        with highest_precision():
+            t_lib = cuda_ms(torch, lambda: einsum_chain_step(torch, A2, E2), 3)
+        fl, nb = chain_work(CHAIN_TILED_B, CHAIN_TILED_N, c, D,
+                            A2.element_size())
+        b_ms, b_by = bound(fl, nb, BF16_PEAK if dtype == torch.bfloat16
+                           else FP32_PEAK)
+        tol = BF16_RTOL if dtype == torch.bfloat16 else KERNEL_RTOL
+        tiled.append(dict(chi=c, dtype=dt, route=rt, max_rel_err=rel2,
+                          repeat_same_bits=same2, ms=t, plain_ms=t_plain,
+                          library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                          tflops_per_s=fl / t / 1e9))
+        check(rt == "tiled" and counted["transfer_chain_tiled"] == 1,
+              f"K6 at chi={c} {dt}: route {rt}, counted {counted}")
+        check(rel2 <= tol and same2,
+              f"K6 tiled (chi={c}, {dt}) disagrees with its twin: {rel2}, "
+              f"repeat same bits {same2}")
+        del A2, E2, out, ref
     emit(phase="k6_transfer_chain", shape=[B, N, chi, D], dtype="bfloat16",
-         chained=R, launches=launches, max_rel_err_chain=rel,
-         max_rel_err_one=one_rel, max_abs_err=err, einsum_rel_err=lib_rel,
-         f32_chi64_rel_err=rel32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-         bound_ms=bound_ms, bound_by=bound_by, tflops_per_s=flops / ms / 1e9)
-    check(launches == R, f"K6 launches in the chain {launches}, expected {R}")
-    check(max(rel, one_rel) <= BF16_RTOL,
-          f"K6 (bf16) disagrees with its twin: chain {rel}, one {one_rel}")
-    check(rel32 <= KERNEL_RTOL, f"K6 (f32) disagrees with its twin: {rel32}")
+         route=route, chained=R, launches=launches, route_counts=routes,
+         max_rel_err_chain=rel, max_rel_err_one=one_rel, max_abs_err=err,
+         repeat_same_bits=repeat, einsum_rel_err=lib_rel, ms=ms,
+         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+         bound_by=bound_by, tflops_per_s=flops / ms / 1e9,
+         tiled=tiled, tiled_shape=[CHAIN_TILED_B, CHAIN_TILED_N])
+    check(launches == R and routes["transfer_chain_resident"] == R,
+          f"K6 launches in the chain {launches} ({routes}), expected {R} "
+          "on the resident route")
+    check(max(rel, one_rel) <= BF16_RTOL and repeat,
+          f"K6 (bf16) disagrees with its twin: chain {rel}, one {one_rel}, "
+          f"repeat same bits {repeat}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms), launches
 
@@ -849,11 +959,18 @@ def single_phase(torch):
               "single-instance state not finite or misshapen")
         de = state_delta_e(torch, As, mpo64)
         rate = (len(times) - 1) / sum(times[1:])
+        traced = {}
+        if lanczos_impl == "fused":   # device time by kernel, one sweep
+            busy_ms, top = device_busy_ms(torch, lambda: one_site_sweep(
+                As, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV,
+                qr_impl=qr_impl, lanczos_impl=lanczos_impl,
+                epilogue_impl=epilogue_impl, renvs=renvs), top=DEVICE_TOP)
+            traced = dict(device_busy_ms=busy_ms, device_top=top)
         emit(phase="single_instance", qr_impl=qr_impl,
              lanczos_impl=lanczos_impl, epilogue_impl=epilogue_impl,
              sweeps=sweeps, delta_E=de,
              ritz_delta_E_per_sweep=[x - REFERENCE_ENERGY for x in energies],
-             sweeps_per_s=rate, first_sweep_s=times[0])
+             sweeps_per_s=rate, first_sweep_s=times[0], **traced)
         if lanczos_impl == "fused":
             check(DE_LO <= de <= DE_HI,
                   f"single instance ({qr_impl}, {epilogue_impl} epilogue) "
@@ -949,12 +1066,12 @@ def host_share_phase(torch, As, renvs, mpo, sweep_s, k2_ms,
                                epilogue_impl=epilogue_impl, renvs=renvs)
 
     t0 = time.perf_counter()
-    busy_ms = device_busy_ms(torch, one_sweep)
+    busy_ms, top = device_busy_ms(torch, one_sweep, top=DEVICE_TOP)
     idle = 1 - busy_ms / (1e3 * sweep_s)
     emit(phase="batched_device_time", epilogue_impl=epilogue_impl,
          sweep_ms=1e3 * sweep_s, device_busy_ms=busy_ms,
          device_idle_share=idle, k2_share=2 * N * k2_ms / (1e3 * sweep_s),
-         k5_share=K5_PER_SWEEP * k5_ms / (1e3 * sweep_s),
+         k5_share=K5_PER_SWEEP * k5_ms / (1e3 * sweep_s), device_top=top,
          profile_seconds=time.perf_counter() - t0)
     return idle
 
@@ -1026,7 +1143,8 @@ def two_site_batched_phase(torch, k2_ms):
     ritz = energy.astype(np.float64) - REFERENCE_ENERGY
     de = np.array([state_delta_e(torch, a, mpo64) for a in As])
     sweep_s = statistics.median(times[1:])
-    busy_ms = device_busy_ms(torch, lambda: sweep(As, renvs))
+    busy_ms, top = device_busy_ms(torch, lambda: sweep(As, renvs),
+                                  top=DEVICE_TOP)
     emit(phase="two_site_batched", batch=BATCH, chi=CHI, sweeps=BATCH_SWEEPS_2S,
          delta_E_median=float(np.median(de)), delta_E_min=float(de.min()),
          delta_E_max=float(de.max()),
@@ -1034,7 +1152,7 @@ def two_site_batched_phase(torch, k2_ms):
          ritz_delta_E_median=float(np.median(ritz)),
          trunc_err_max_per_sweep=terr,
          instance_sweeps_per_s=BATCH / sweep_s, sweep_s=times,
-         device_busy_ms=busy_ms,
+         device_busy_ms=busy_ms, device_top=top,
          device_idle_share=1 - busy_ms / (1e3 * sweep_s),
          k2_share=2 * (N - 1) * k2_ms / (1e3 * sweep_s),
          k2_launches_per_sweep=per_sweep)

@@ -1,7 +1,9 @@
 // The f32 GEMM core of the large-chi streamed matvecs (streamed_matvec.cu,
-// streamed_matvec_xl.cu): fp32-accurate products on the tensor cores by
-// 3xTF32, and the matvec built from it as two large GEMMs and a coupling
-// fold.
+// streamed_matvec_xl.cu) and of the resident Lanczos kernel
+// (fused_lanczos.cu, whose matvec streams 64 x 64 tiles through
+// gemm_stream inside one block per instance): fp32-accurate products on
+// the tensor cores by 3xTF32, and the streamed matvec built from it as two
+// large GEMMs and a coupling fold.
 //
 // Index conventions (kernel layout, see ops/kernels.py prepare_operands):
 //   Lt[w][c][a]   C[w][v][s][t]   Rt[v][b][d]   x[t][a][b]  ->  y[s][c][d]
@@ -169,9 +171,138 @@ __device__ __forceinline__ void load_stage(float* As, float* Bs,
   }
 }
 
+// acc += As (BM x BK, ring layout) @ Bs (BK x BN): one ring stage of the
+// block's BM x BN tile on the tensor cores in 3xTF32.  FINE = false: the
+// stage's 12 mmas of an output fragment chain into one fresh sum, added
+// to acc once.  FINE = true: the small terms chain over the stage, but
+// each 8-deep big x big product starts from zero and is added to acc on
+// its own, so each f32 value passes one round-toward-zero instead of 12:
+// the bias that shrinks every output alike, and so survives in a sum of
+// many outputs (a Rayleigh quotient), falls ~10x, for 4 more f32 adds
+// per output and stage.
+template <int BM, int BN, bool FINE = false>
+__device__ __forceinline__ void stage_mma(
+    float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4], const float* as,
+    const float* bs) {
+  using T = Tile<BM, BN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = (warp / 4) * T::WM, n0 = (warp % 4) * T::WN;
+  const int g = lane / 4, q = lane % 4;
+  constexpr int KQ = BK / 8;  // 8-deep mma steps per stage
+  // the warp's B fragments of the whole stage, split once
+  uint32_t bb[KQ][T::NT][2], bsm[KQ][T::NT][2];
+#pragma unroll
+  for (int kq = 0; kq < KQ; ++kq)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j) {
+      const float* p = bs + (kq * 8 + q) * T::BP + n0 + j * 8 + g;
+      split(p[0], bb[kq][j][0], bsm[kq][j][0]);
+      split(p[4 * T::BP], bb[kq][j][1], bsm[kq][j][1]);
+    }
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i) {
+    uint32_t ab[KQ][4], asm_[KQ][4];
+#pragma unroll
+    for (int kq = 0; kq < KQ; ++kq) {
+      const float* p = as + (m0 + i * 16 + g) * T::AP + kq * 8 + q;
+      split(p[0], ab[kq][0], asm_[kq][0]);
+      split(p[8 * T::AP], ab[kq][1], asm_[kq][1]);
+      split(p[4], ab[kq][2], asm_[kq][2]);
+      split(p[8 * T::AP + 4], ab[kq][3], asm_[kq][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j) {
+      // the tensor cores round the f32 sum of each mma toward zero: the
+      // stage's mmas go to fresh sums, which join the accumulator by f32
+      // adds (round to nearest)
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (FINE) {
+#pragma unroll
+        for (int kq = 0; kq < KQ; ++kq) {
+          mma(d, asm_[kq], bb[kq][j]);
+          mma(d, ab[kq], bsm[kq][j]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+#pragma unroll
+        for (int kq = 0; kq < KQ; ++kq) {
+          float big[4] = {0.f, 0.f, 0.f, 0.f};
+          mma(big, ab[kq], bb[kq][j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += big[e];
+        }
+      } else {
+#pragma unroll
+        for (int kq = 0; kq < KQ; ++kq) {
+          mma(d, asm_[kq], bb[kq][j]);
+          mma(d, ab[kq], bsm[kq][j]);
+          mma(d, ab[kq], bb[kq][j]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+      }
+    }
+  }
+}
+
+// A stream of BM x BN tile GEMMs through one STAGES-deep ring of 32-deep
+// stages: job j (of njobs) has nk stages.  load(j, q, As, Bs) issues the
+// copies of job j's stage q (load_stage); each job's product adds to acc,
+// and epi(j, acc) takes job j's finished tile, after which acc is zeroed
+// for the next job (the last job's sum stays in acc).  The ring runs on
+// from one job to the next, so the copies of job j+1 land while job j
+// computes; the (job, stage) counters step without a division.  Ends
+// with every copy landed and a __syncthreads(), so the caller may reuse
+// `smem`.
+template <int BM, int BN, bool FINE = false, typename Load, typename Epi>
+__device__ void gemm_stream(int njobs, int nk, Load load, Epi epi,
+                            float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
+                            float* smem) {
+  using T = Tile<BM, BN>;
+  float* As = smem;
+  float* Bs = smem + STAGES * T::A_STAGE;
+  const int steps = njobs * nk;
+  int ljob = 0, lq = 0;  // the next stage to load
+  auto load_next = [&](int slot) {
+    load(ljob, lq, As + slot * T::A_STAGE, Bs + slot * T::B_STAGE);
+    if (++lq == nk) lq = 0, ++ljob;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_next(s);
+    cp_commit();
+  }
+  int job = 0, q = 0;  // the stage computed now
+  for (int t = 0; t < steps; ++t) {
+    cp_wait<STAGES - 2>();  // step t has landed (this thread's copies)
+    __syncthreads();        // ... everyone's; step t-1's slot is free
+    if (t + STAGES - 1 < steps) load_next((t + STAGES - 1) % STAGES);
+    cp_commit();
+    stage_mma<BM, BN, FINE>(acc, As + (t % STAGES) * T::A_STAGE,
+                            Bs + (t % STAGES) * T::B_STAGE);
+    if (++q == nk) {
+      epi(job, acc);
+      q = 0;
+      if (++job < njobs) {
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+          for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+}
+
 // acc += A[0:rows, 0:K] @ B[0:K, 0:cols] over this block's BM x BN tile
 // (A and B point at the tile's first row / column).  Ends with every
 // copy landed and a __syncthreads(), so the caller may reuse `smem`.
+// gemm_stream's loop for one job, kept apart: run through gemm_stream,
+// K7/K8's stage 2 took 3% longer on an H100 80GB HBM3 at 700 W
+// (benchmarks/sweep_kernels.py, in turns with the loop below).
 template <int BM, int BN>
 __device__ void gemm_tile(float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
                           const float* A, int lda, const float* B, int ldb,
@@ -188,9 +319,6 @@ __device__ void gemm_tile(float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
                          K - s * BK, vec);
     cp_commit();
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = (warp / 4) * T::WM, n0 = (warp % 4) * T::WN;
-  const int g = lane / 4, q = lane % 4;
   for (int kt = 0; kt < nk; ++kt) {
     cp_wait<STAGES - 2>();  // stage kt has landed (this thread's copies)
     __syncthreads();        // ... everyone's; stage kt-1 is free
@@ -202,46 +330,8 @@ __device__ void gemm_tile(float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
                          rows, cols, K - nxt * BK, vec);
     }
     cp_commit();
-    const float* as = As + (kt % STAGES) * T::A_STAGE;
-    const float* bs = Bs + (kt % STAGES) * T::B_STAGE;
-    constexpr int KQ = BK / 8;  // 8-deep mma steps per stage
-    // the warp's B fragments of the whole stage, split once
-    uint32_t bb[KQ][T::NT][2], bsm[KQ][T::NT][2];
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq)
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const float* p = bs + (kq * 8 + q) * T::BP + n0 + j * 8 + g;
-        split(p[0], bb[kq][j][0], bsm[kq][j][0]);
-        split(p[4 * T::BP], bb[kq][j][1], bsm[kq][j][1]);
-      }
-#pragma unroll
-    for (int i = 0; i < T::MT; ++i) {
-      uint32_t ab[KQ][4], asm_[KQ][4];
-#pragma unroll
-      for (int kq = 0; kq < KQ; ++kq) {
-        const float* p = as + (m0 + i * 16 + g) * T::AP + kq * 8 + q;
-        split(p[0], ab[kq][0], asm_[kq][0]);
-        split(p[8 * T::AP], ab[kq][1], asm_[kq][1]);
-        split(p[4], ab[kq][2], asm_[kq][2]);
-        split(p[8 * T::AP + 4], ab[kq][3], asm_[kq][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        // the tensor cores round the f32 sum of each mma toward zero: the
-        // stage's mmas go to a fresh sum, which joins the accumulator by
-        // an f32 add (round to nearest)
-        float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kq = 0; kq < KQ; ++kq) {
-          mma(d, asm_[kq], bb[kq][j]);
-          mma(d, ab[kq], bsm[kq][j]);
-          mma(d, ab[kq], bb[kq][j]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
-      }
-    }
+    stage_mma<BM, BN>(acc, As + (kt % STAGES) * T::A_STAGE,
+                      Bs + (kt % STAGES) * T::B_STAGE);
   }
   cp_wait<0>();
   __syncthreads();

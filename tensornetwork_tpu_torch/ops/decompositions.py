@@ -149,6 +149,7 @@ _ORTH = {"qr": torch.linalg.qr, "cholqr2": cholqr2,
 
 def subspace_truncate(matrix: torch.Tensor, k: int,
                       q0: Optional[torch.Tensor] = None, iters: int = 6,
+                      key: Optional[torch.Generator] = None,
                       power: int = 1, orth: str = "qr",
                       polar_fast: Optional[Tuple[int, int]] = None
                       ) -> SubspaceTrunc:
@@ -159,17 +160,24 @@ def subspace_truncate(matrix: torch.Tensor, k: int,
     subspace is gauge, not the singular basis.
 
     ``q0`` [..., m, k]: the warm start (need not be orthonormal); the
-    first k columns of the identity when None.  ``orth``: ``"qr"``
+    first k columns of the identity when None, plus ``0.01`` times a
+    standard normal draw from ``key`` (a :class:`torch.Generator` on the
+    matrix's device) when one is given.  ``orth``: ``"qr"``
     (Householder), ``"cholqr2"``, ``"polar"`` (:func:`ns_polar`; leaves
     exact-null columns zero) or ``"polar+qr"`` (polar, then one final
     Householder QR).  ``polar_fast=(quintic, cubic)`` with ``"polar"``:
     that shorter Newton-Schulz schedule on every iterate but the last.
-    Counterpart of the JAX package's ``subspace_truncate`` (without its
-    random perturbation of the identity start)."""
+    Counterpart of the JAX package's ``subspace_truncate``; a
+    ``torch.Generator`` draws other numbers than a JAX key of the same
+    seed."""
     m = matrix.shape[-2]
     if q0 is None:
         q0 = torch.eye(m, k, dtype=matrix.dtype, device=matrix.device
                        ).expand(matrix.shape[:-2] + (m, k))
+        if key is not None:
+            q0 = q0 + 0.01 * torch.randn(q0.shape, generator=key,
+                                         dtype=matrix.dtype,
+                                         device=matrix.device)
     G = matrix @ matrix.mT
     gnorm = torch.linalg.vector_norm(G, dim=(-2, -1), keepdim=True)
     Gn = G / torch.where(gnorm > 0, gnorm, 1.0)

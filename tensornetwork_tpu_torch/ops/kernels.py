@@ -18,9 +18,9 @@ The local solve is a ladder of tiers chosen by bond dimension
 * resident (chi <= 256): :func:`fused_lanczos` -- m matvecs plus the
   three-term recurrence, one block per instance (replaces
   ``make_fused_lanczos``), emitting the basis V and (alpha, beta) with
-  +1e10 sentinels on dead steps.  Its GEMM core is :func:`heff_matvec`,
-  one batched H_eff matvec (replaces ``make_heff_matvec``), the matvec of
-  the plain route.
+  +1e10 sentinels on dead steps.  Beside it :func:`heff_matvec`, one
+  batched H_eff matvec (replaces ``make_heff_matvec``), the matvec of the
+  plain route.
 * two_pass (chi = 384): :func:`fused_lanczos_fact` emits (alpha, beta)
   only, :func:`fused_lanczos_replay` reruns the recurrence and accumulates
   the Ritz vector (replace ``make_fused_lanczos_2pass``).
@@ -38,8 +38,10 @@ The local solve is a ladder of tiers chosen by bond dimension
 
 In f32 these two are two tensor-core GEMMs in 3xTF32 and a coupling fold
 (``csrc/gemm_tc32.cuh``; :func:`tc32_tile` picks each GEMM's tile,
-:func:`tf32x3_matmul_plain` models the product); every other kernel, and
-their f64 instances, are fp32/fp64 SIMT.
+:func:`tf32x3_matmul_plain` models the product), and so is the resident
+tier's :func:`fused_lanczos`, with the same GEMMs as tile streams inside
+one block per instance; K3, K4, K5 and K1, and every f64 instance, are
+fp32/fp64 SIMT.
 
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 (:func:`fused_lanczos_ground_state_2s`).
@@ -52,8 +54,10 @@ Beside the local solve:
   the sweep with ``epilogue_impl="fused"`` where
   :func:`gauge_epilogue_admitted` admits the shape.
 * :func:`transfer_chain` -- the batched MPS norm/overlap environment over
-  a whole chain, E resident on the SM across sites (replaces
-  ``make_transfer_chain``), bf16 or f32 in, f32 out.
+  a whole chain (replaces ``make_transfer_chain``), bf16 or f32 in, f32
+  out, any chi: bf16 on the tensor cores with E resident on the SM across
+  sites where it fits (:func:`transfer_chain_route`), else two batched
+  GEMM launches per site.
 * :func:`gemm_chain` -- chained bf16 GEMMs, the kernel of the issue-rate
   probe :mod:`tensornetwork_tpu_torch.benchmarks.mxu_micro` (replaces
   ``benchmarks/mxu_micro.py``'s ``make_chain_kernel``).
@@ -81,6 +85,9 @@ launch_counts: Dict[str, int] = {
     "fused_lanczos_replay": 0, "fused_lanczos_streamed": 0,
     "streamed_matvec": 0, "streamed_matvec_xl": 0, "fused_gauge_env": 0,
     "transfer_chain": 0, "gemm_chain": 0}
+# the route of each kernel launch of transfer_chain (transfer_chain_route)
+route_counts: Dict[str, int] = {"transfer_chain_resident": 0,
+                                "transfer_chain_tiled": 0}
 # blocks of the last launch of each grid-wide (cooperative) kernel
 last_grid: Dict[str, int] = {}
 
@@ -106,7 +113,7 @@ _ARGTYPES = {
     "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P],
     "tn_fused_gauge_env": [_P] * 11 + [_I] * 6 + [_P, _P],
-    "tn_transfer_chain": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tn_transfer_chain": [_P] * 6 + [_I] * 5 + [_P],
     "tn_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
@@ -128,8 +135,9 @@ _TYPES["tn_gemm_chain"] = (torch.bfloat16,)
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, route_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _kernel_fn(name: str, dtype: torch.dtype):
@@ -457,7 +465,9 @@ def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
     ``ab`` (B, 2, m): ``ab[:, 0]`` the alphas (+1e10 on dead steps),
     ``ab[:, 1, :-1]`` the betas (0 on dead steps).  Counterpart of
     ``make_fused_lanczos`` (plain three-term recurrence, no
-    reorthogonalisation)."""
+    reorthogonalisation).  f32 runs its products on the tensor cores in
+    3xTF32 (fp32-accurate; ``csrc/gemm_tc32.cuh``), f64 on the SIMT
+    core."""
     B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
     m = num_krylov_vecs
     _check_krylov(m)
@@ -1083,7 +1093,27 @@ def fused_gauge_env_right(R, W, A, quintic_iters: int = 14,
 # ---------------------------------------------------------------------------
 
 _SMEM_BYTES = 232_448   # shared memory one H100 block may use
-_CHAIN_MAX_CHI = 128    # transfer_chain.cu: 16 x 16 threads, 8 x 8 outputs
+_CHAIN_GRAN = 16        # transfer_chain.cu GRAN: the bf16 kernels' chi step
+
+
+def _chain_chi(chi: int, dtype: torch.dtype) -> int:
+    """The chi the kernels run at: bf16 padded with zeros to a multiple of
+    16 (the m16n8k16 fragment), f32 as it is."""
+    if dtype == torch.bfloat16:
+        return -(-chi // _CHAIN_GRAN) * _CHAIN_GRAN
+    return chi
+
+
+def transfer_chain_route(chi: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel route of :func:`transfer_chain` for CUDA tensors:
+    ``"resident"`` -- bf16 whose T(E), two site tensors and Y, (1 + 3d)
+    chi^2 elements at the padded chi, fit one block's shared memory (d=2:
+    chi <= 128, the bench shape) -- else ``"tiled"`` (two batched GEMM
+    launches per site; every f32 chain)."""
+    c = _chain_chi(chi, dtype)
+    if dtype == torch.bfloat16 and (1 + 3 * d) * c * c * 2 <= _SMEM_BYTES:
+        return "resident"
+    return "tiled"
 
 
 def transfer_chain_plain(As, E0, accum_dtype: torch.dtype = torch.float32):
@@ -1112,13 +1142,13 @@ def transfer_chain(As, E0, impl: str = "kernel",
     chi, d, chi) stacked MPS (solver layout), E0 (B, chi, chi); returns E_N
     (B, chi, chi) in ``accum_dtype``.
 
-    ``impl="kernel"`` launches K6 (one block per instance walks all N sites
-    with E resident in shared memory; bf16 or float32 in, float32
-    accumulation, chi <= 128) for CUDA tensors and runs its twin for CPU
-    tensors; ``impl="plain"`` is :func:`transfer_chain_plain`.  Counterpart
-    of the JAX package's ``transfer_chain``; its ``tile_b``, ``variant``
-    and ``interpret`` choose the layout of the TPU program and are not
-    taken (the variants compute one function)."""
+    ``impl="kernel"`` launches K6 for CUDA tensors (bf16 or float32 in,
+    float32 accumulation, any chi and d) on the route
+    :func:`transfer_chain_route` picks, and runs its twin for CPU tensors;
+    ``impl="plain"`` is :func:`transfer_chain_plain`.  Counterpart of the
+    JAX package's ``transfer_chain``; its ``tile_b``, ``variant`` and
+    ``interpret`` choose the layout of the TPU program and are not taken
+    (the variants compute one function)."""
     if impl == "plain":
         return transfer_chain_plain(As, E0, accum_dtype)
     if impl != "kernel":
@@ -1128,7 +1158,7 @@ def transfer_chain(As, E0, impl: str = "kernel",
     B, N, chi, d, _ = As.shape
     if E0.shape != (B, chi, chi):
         raise ValueError(f"E0 must be {(B, chi, chi)}, got {tuple(E0.shape)}")
-    if As.dtype not in _TYPES["tn_transfer_chain"]:
+    if As.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"As must be bfloat16 or float32, got {As.dtype}")
     if E0.device != As.device:
         raise ValueError("As and E0 must lie on one device")
@@ -1136,19 +1166,28 @@ def transfer_chain(As, E0, impl: str = "kernel",
         return transfer_chain_plain(As, E0, accum_dtype)
     if accum_dtype != torch.float32:
         raise TypeError("the kernel accumulates in float32")
-    smem = (1 + 2 * d) * chi * chi * As.element_size()
-    if chi > _CHAIN_MAX_CHI or smem > _SMEM_BYTES:
-        raise ValueError(f"chi={chi}, d={d}, {As.dtype}: the kernel takes "
-                         f"chi <= {_CHAIN_MAX_CHI} and (1 + 2d) chi^2 "
-                         f"elements within {_SMEM_BYTES} bytes of shared "
-                         "memory")
-    out = torch.empty((B, chi, chi), dtype=torch.float32, device=As.device)
-    _launch("tn_transfer_chain", As.dtype, As.device,
-            As.contiguous().data_ptr(),
-            E0.to(torch.float32).contiguous().data_ptr(), out.data_ptr(),
-            B, N, chi, d)
+    route = transfer_chain_route(chi, d, As.dtype)
+    c = _chain_chi(chi, As.dtype)
+    As, E0 = As.contiguous(), E0.to(torch.float32).contiguous()
+    if c != chi:   # zero rows and columns leave every sum unchanged
+        As = torch.nn.functional.pad(As, (0, c - chi, 0, 0, 0, c - chi))
+        E0 = torch.nn.functional.pad(E0, (0, c - chi, 0, c - chi))
+    if As.data_ptr() % 16:   # 16-byte cp.async of the site tensors
+        As = As.clone()
+    out = torch.empty((B, c, c), dtype=torch.float32, device=As.device)
+    tiled = route == "tiled"
+    # the tiled route's T(E0) and scratch: T(E) and Y of a site
+    Et, Ebuf, Ybuf = ((E0.to(As.dtype),
+                       torch.empty((B, c, c), dtype=As.dtype, device=As.device),
+                       torch.empty((B, c, d, c), dtype=As.dtype,
+                                   device=As.device))
+                      if tiled else (None, None, None))
+    _launch("tn_transfer_chain", As.dtype, As.device, As.data_ptr(),
+            E0.data_ptr(), _ptr(Et), _ptr(Ebuf), _ptr(Ybuf), out.data_ptr(),
+            B, N, c, d, int(tiled))
     launch_counts["transfer_chain"] += 1
-    return out
+    route_counts["transfer_chain_" + route] += 1
+    return out if c == chi else out[:, :chi, :chi].contiguous()
 
 
 # ---------------------------------------------------------------------------

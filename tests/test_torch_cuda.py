@@ -309,6 +309,52 @@ def test_fused_lanczos_kernel_nt4_matches_twin(cuda, dtype):
     assert _rel(ab, ab0) < TOL[dtype][1] and _rel(V, V0) < TOL[dtype][1]
 
 
+@pytest.mark.parametrize("nt", [2, 4])
+def test_fused_lanczos_f32_error_against_f64(cuda, nt):
+    # the 3xTF32 products keep the kernel's error against an f64 run of the
+    # same f32 operands within 4x the f32 twin's (cuBLAS SGEMM); one TF32
+    # product would read ~1e3 x
+    Lt, C, Rt, xt = _operands(4, 64, nt, 3, torch.float32, cuda, seed=nt)
+    V, ab = TK.fused_lanczos(Lt, C, Rt, xt, 6)
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(Lt, C, Rt, xt, 6)
+    V64, ab64 = TK.fused_lanczos_plain(Lt.double(), C.double(), Rt.double(),
+                                       xt.double(), 6)
+
+    def err(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    assert err(ab, ab64) <= 4 * err(ab0, ab64), (err(ab, ab64), err(ab0, ab64))
+    assert err(V, V64) <= 4 * err(V0, V64), (err(V, V64), err(V0, V64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nt,chi", [(2, 64), (4, 64), (2, 80), (3, 24)])
+def test_fused_lanczos_kernel_repeat_launch_same_bits(cuda, dtype, nt, chi):
+    # fixed-order sums, no float atomics: a second launch gives the same
+    # bits (nt=3 takes the kernel's run-time M, nt path)
+    Lt, C, Rt, xt = _operands(3, chi, nt, 3, dtype, cuda, seed=chi)
+    V, ab = TK.fused_lanczos(Lt, C, Rt, xt, 5)
+    V2, ab2 = TK.fused_lanczos(Lt, C, Rt, xt, 5)
+    assert torch.equal(V, V2) and torch.equal(ab, ab2)
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(Lt, C, Rt, xt, 5)
+    assert _rel(ab, ab0) < TOL[dtype][1] and _rel(V, V0) < TOL[dtype][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_lanczos_kernel_nt4_breakdown(cuda, dtype):
+    # the two-site tier's breakdown chains equal the twin's bits: the
+    # operators are small integers, which the 3xTF32 split keeps exact
+    Lt, W, Rt, x = _breakdown(cuda, dtype, chi=64, d=4)
+    V, ab = TK.fused_lanczos(Lt, W, Rt, x, 4)
+    V0, ab0 = TK.fused_lanczos_plain(Lt, W, Rt, x, 4)
+    torch.testing.assert_close(ab, ab0, rtol=0, atol=0)
+    torch.testing.assert_close(V, V0, rtol=0, atol=0)
+    assert float(ab[0, 0, 0]) == 1.0 and bool((ab[0, 0, 1:] == 1e10).all())
+    assert bool((ab[1, 0] == 1e10).all()) and bool((ab[:, 1] == 0).all())
+
+
 @pytest.mark.parametrize("tier,kernel", [
     ("resident", "fused_lanczos"), ("streamed_matvec", "streamed_matvec"),
     ("streamed_matvec_xl", "streamed_matvec_xl")])
@@ -404,19 +450,24 @@ def test_fused_epilogue_sweep_on_the_card_is_variational(cuda):
     assert exact - 1e-9 <= e < exact + 1e-8
 
 
-@pytest.mark.parametrize("dtype,chi,d", [(torch.bfloat16, 128, 2),
-                                         (torch.bfloat16, 40, 2),
-                                         (torch.float32, 64, 2),
-                                         (torch.float32, 15, 3)])
-def test_transfer_chain_kernel_matches_twin(cuda, dtype, chi, d):
-    B, N = 3, 5
+@pytest.mark.parametrize("dtype,chi,d,B,N", [
+    (torch.bfloat16, 128, 2, 3, 5), (torch.bfloat16, 40, 2, 3, 5),
+    (torch.float32, 64, 2, 3, 5), (torch.float32, 15, 3, 3, 5),
+    # the shapes the route "tiled" opened: chi > 128, f32 at chi = 128,
+    # d beyond the resident budget, a chi that is padded
+    (torch.bfloat16, 256, 2, 16, 8), (torch.float32, 256, 2, 16, 8),
+    (torch.float32, 128, 2, 16, 8), (torch.bfloat16, 128, 3, 4, 4),
+    (torch.bfloat16, 150, 2, 2, 3)])
+def test_transfer_chain_kernel_matches_twin(cuda, dtype, chi, d, B, N):
     g = torch.Generator(device=cuda).manual_seed(chi + d)
     As = (torch.randn((B, N, chi, d, chi), device=cuda, generator=g)
           / (d * chi) ** 0.5).to(dtype)
     E0 = torch.eye(chi, device=cuda).expand(B, chi, chi)
+    route = TK.transfer_chain_route(chi, d, dtype)
     TK.reset_launch_counts()
     E = TK.transfer_chain(As, E0)
     assert TK.launch_counts["transfer_chain"] == 1
+    assert TK.route_counts["transfer_chain_" + route] == 1
     assert E.dtype == torch.float32 and E.shape == (B, chi, chi)
     ref = TK.transfer_chain_plain(As, E0)
     # bf16: the same exact products summed in another order; a rounding of

@@ -1,8 +1,10 @@
-"""The f32 core of the large-chi streamed matvecs (``csrc/gemm_tc32.cuh``)
-on the CPU: the plain model of its 3xTF32 product against float64, the
-Lanczos recurrence on a matvec built from that model against exact
-diagonalisation, and the tile and K3 rules at the path shapes.  The
-kernels themselves run in ``tests/test_torch_cuda.py`` on the card."""
+"""The f32 core of the large-chi streamed matvecs and of the resident
+Lanczos kernel (``csrc/gemm_tc32.cuh``) on the CPU: the plain model of its
+3xTF32 product against float64, the Lanczos recurrence on a matvec built
+from that model against exact diagonalisation -- around K7, and K2's
+whole factorization in its own GEMM shapes -- and the tile and K3 rules
+at the path shapes.  The kernels themselves run in
+``tests/test_torch_cuda.py`` on the card."""
 import numpy as np
 import pytest
 import torch
@@ -145,6 +147,92 @@ def test_lanczos_on_the_3xtf32_model_is_variational(monkeypatch, run, tier_fn,
         assert abs(e - exact) < 2e-5, (e, exact)
     else:
         assert abs(state - exact) > 1e-5 or e < exact - 1e-4, (e, state)
+
+
+def _k2_tc32_matvec(Lt, C, Rt, x):
+    """K2's f32 matvec in the 3xTF32 model, in the kernel's GEMM shapes:
+    stage 1 one (M chi) x (nt chi) GEMM, the coupling fold in float32,
+    stage 2 one chi x (M chi) GEMM per s; and <x, y>."""
+    B, nt, chi, _ = x.shape
+    M = Lt.shape[1]
+    P = TK.tf32x3_matmul_plain(Lt.reshape(B, M * chi, chi),
+                               x.permute(0, 2, 1, 3).reshape(B, chi, nt * chi))
+    P = P.reshape(B, M, chi, nt, chi)                       # [w, c, t, b]
+    spec = "wvst" if C.dim() == 4 else "Bwvst"
+    with highest_precision():
+        Q = torch.einsum(f"{spec},Bwctb->Bscvb", C, P)      # [s, c, v, b]
+    y = TK.tf32x3_matmul_plain(Q.reshape(B, nt, chi, M * chi),
+                               Rt.reshape(B, 1, M * chi, chi))
+    return y, (x * y).sum(dim=(1, 2, 3))
+
+
+def _k2_model(Lt, C, Rt, x0, num_krylov_vecs, delta=1e-8):
+    """K2's factorization on the model: fused_lanczos_plain's recurrence,
+    masks and sentinels around :func:`_k2_tc32_matvec`."""
+    return TK._lanczos_recurrence(lambda v: _k2_tc32_matvec(Lt, C, Rt, v),
+                                  x0, num_krylov_vecs, delta)
+
+
+@pytest.mark.parametrize("nt,per_instance", [(2, False), (4, True)])
+def test_k2_model_matches_the_twin(nt, per_instance):
+    # the model against the plain twin on the same f32 operands: a few f32
+    # ulps per matvec, carried over m=6 steps of the recurrence (the card
+    # tests hold the kernel to the twin at 1e-4 for the same reason)
+    rng = np.random.default_rng(10 + nt)
+    B, chi, M = 2, 16, 3
+    L = rng.standard_normal((B, M, chi, chi))
+    Lt = (L + L.transpose(0, 1, 3, 2)) / 2
+    R = rng.standard_normal((B, M, chi, chi))
+    Rt = (R + R.transpose(0, 1, 3, 2)) / 2
+    C = rng.standard_normal((M, M, nt, nt))
+    C = (C + C.transpose(1, 0, 3, 2)) / 2
+    if per_instance:
+        C = np.stack([C, C[::-1, ::-1]])
+    x = rng.standard_normal((B, nt, chi, chi))
+    ops = [torch.from_numpy(a.astype(np.float32)) for a in (Lt, C, Rt, x)]
+    V, ab = _k2_model(*ops, 6)
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(*ops, 6)
+    assert float((ab - ab0).abs().max() / ab0.abs().max()) < 1e-4
+    assert float((V - V0).abs().max() / V0.abs().max()) < 1e-4
+    # the breakdown operators are small integers, which split exactly: a
+    # product state of a diagonal operator dies at step 0, bit for bit
+    Wd = torch.eye(nt).reshape(1, 1, nt, nt)
+    Ld = torch.diag(torch.arange(1.0, 9.0)).reshape(1, 1, 8, 8).repeat(2, 1, 1, 1)
+    Rd = torch.eye(8).reshape(1, 1, 8, 8).repeat(2, 1, 1, 1)
+    xd = torch.zeros((2, nt, 8, 8))
+    xd[0, 0, 0, 0] = 2.0
+    Vd, abd = _k2_model(Ld, Wd, Rd, xd, 4)
+    Vd0, abd0 = TK.fused_lanczos_plain(Ld, Wd, Rd, xd, 4)
+    assert torch.equal(abd, abd0) and torch.equal(Vd, Vd0)
+
+
+@pytest.mark.parametrize("run", ["run_one_site", "run_two_site"])
+def test_lanczos_on_the_k2_model_is_variational(monkeypatch, run):
+    # K2's whole factorization in the model, on the resident tier of both
+    # sweeps: TFI N=8, chi=16 in float32.  The state is judged in float64;
+    # the sweep's own f32 Ritz value scatters ~1e-5 about the exact energy
+    # with the plain f32 matvec too, so it may sit at most 2e-5 below.
+    N, chi = 8, 16
+    mpo64 = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64, device="cpu")
+    exact = float(np.linalg.eigvalsh(tmpo.mpo_to_dense(mpo64))[0])
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32, device="cpu")
+    calls = []
+
+    def fused_lanczos(Lt, W, Rt, xt, m, delta=1e-8):
+        calls.append(1)
+        return _k2_model(Lt, W, Rt, xt, m, delta)
+
+    monkeypatch.setattr(TK, "fused_lanczos", fused_lanczos)
+    As = tdmrg.random_mps_stack(1, N, chi, 2, dtype=torch.float32,
+                                device="cpu")
+    dm = tdmrg.FiniteDMRG(As, mpo)
+    e = getattr(dm, run)(num_sweeps=2, num_krylov_vecs=10, tol=0.0)
+    state = float(tdmrg.mps_mpo_expectation(dm.As.double(), mpo64.Ws,
+                                            mpo64.vL, mpo64.vR))
+    assert calls
+    assert e >= exact - 2e-5, (e, exact)
+    assert exact - 1e-6 <= state <= exact + 1e-6, (state, exact)
 
 
 @pytest.mark.parametrize("chi,nt", PATH_SHAPES)

@@ -118,3 +118,27 @@ def test_interop_round_trips_a_jax_bf16_stack_bit_for_bit(rng):
     t32 = interop.mps_from_numpy(np.asarray(a), device="cpu",
                                  dtype=torch.float32)
     np.testing.assert_array_equal(t32.numpy(), np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("chi,d,kind,route", [
+    (16, 2, "bf16", "resident"), (64, 2, "bf16", "resident"),
+    (100, 2, "bf16", "resident"), (128, 2, "bf16", "resident"),
+    (128, 2, "f32", "tiled"), (64, 2, "f32", "tiled"),
+    (160, 2, "bf16", "tiled"), (160, 2, "f32", "tiled"),
+    (256, 2, "bf16", "tiled"), (256, 2, "f32", "tiled"),
+    (128, 3, "bf16", "tiled"), (64, 3, "bf16", "resident")])
+def test_transfer_chain_route(chi, d, kind, route):
+    # "resident" while T(E), two site tensors and Y -- (1 + 3d) chi^2 bf16
+    # values at chi padded to a multiple of 16 -- fit one block's 227 KB;
+    # f32 always takes the tiled route
+    assert TK.transfer_chain_route(chi, d, DTYPES[kind][1]) == route
+
+
+def test_transfer_chain_twin_at_chi_160_matches_xla(rng):
+    # a shape the kernel's old single route refused on the card: f32,
+    # chi=160.  The same function as transfer_chain_xla in f32 (2.2e-7
+    # measured at N=4 above), 3 sites of 160 x 320-term sums.
+    Aj, Ej, At, Et = _inputs(rng, 2, 3, 160, 2, "f32")
+    E = TK.transfer_chain(At, Et)
+    ref = JK.transfer_chain_xla(Aj, Ej, precision=jax.lax.Precision.HIGHEST)
+    assert _rel(E.numpy(), ref) < XLA_TOL["f32"]
