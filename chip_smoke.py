@@ -89,9 +89,10 @@ HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 # The fused epilogue (K5) on the one-site sweep: one launch per site and
 # direction, and one per site of the first sweep's prepass.
 K5_PER_SWEEP = 2 * N
-# K5 against its twin at the batched path's shape and at B=1, chi=256, the
-# edge of the shapes the route rule admits (chi <= 347 at d=2, M=3).
-K5_SHAPES = ((BATCH, CHI), (1, 256))
+# K5 against its twin at the batched path's shape, at B=1, chi=256, the
+# edge of the shapes the route rule admits (chi <= 347 at d=2, M=3), and at
+# B=1, chi=64, the single-instance fused path's shape.
+K5_SHAPES = ((BATCH, CHI), (1, 256), (1, CHI))
 # The transfer chain (K6) at bench.py's shape: B=256, N=32, chi=128, bf16,
 # E0 = I, R=8 chained applications.
 CHAIN_B, CHAIN_CHI, CHAIN_R = 256, 128, 8
@@ -257,6 +258,26 @@ def lanczos_f64_errors(torch, ops, V, ab, V0, ab0, m):
     return out
 
 
+def grid_plan(torch, K, chi):
+    """The grid Lanczos plan at B=1 (tiles, split, jobs) for this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return K.lgrid_plan(chi, D, M, 1, sms)._asdict()
+
+
+def route_times(torch, K, sol, tier_solve):
+    """ms of one ground-state solve (m=KRYLOV, eigh Ritz) on the
+    solver-layout operands ``sol`` through the tier's own wrapper
+    ``tier_solve`` and through the K7 tier (streamed_lanczos and the Ritz
+    pair), with the two Ritz values."""
+    k7 = lambda: K.fused_lanczos_ground_state_streamed2(  # noqa: E731
+        *sol, KRYLOV, ritz_method="eigh")
+    tier = lambda: tier_solve(*sol, KRYLOV, ritz_method="eigh")  # noqa: E731
+    e_tier, e_k7 = float(tier()[0][0]), float(k7()[0][0])
+    return dict(tier_solve_ms=cuda_ms(torch, tier, 5),
+                k7_route_ms=cuda_ms(torch, k7, 5),
+                tier_ritz=e_tier, k7_route_ritz=e_k7)
+
+
 def device_phase(torch):
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     smi = subprocess.run(
@@ -358,12 +379,17 @@ def k2_phase(torch):
 
 def k3_phase(torch):
     """K3, the two-pass Lanczos (fact, then replay with the Ritz weights),
-    at the chi=384 path's shapes."""
+    at the chi=384 path's shapes: against its twins and against an f64 run
+    of them (within 4x the f32 twins' error), a repeat launch and the
+    breakdown chains bit for bit, fact's ab bit for bit K4's on the same
+    operands; timed beside the same solve through the K7 tier."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     from tensornetwork_tpu_torch.ops.krylov import tridiag_ritz
+    t0 = time.perf_counter()
     chi = TIER_CHI["two_pass"]
-    _, (Lt, W, Rt, xt) = hermitian_operands(torch, 1, chi, D, M, seed=3)
+    sol, ops = hermitian_operands(torch, 1, chi, D, M, seed=3)
+    Lt, W, Rt, xt = ops
 
     def ritz_weights(ab):
         return tridiag_ritz(ab[:, 0], ab[:, 1, :-1], "eigh")[1].contiguous()
@@ -379,6 +405,23 @@ def k3_phase(torch):
               "K3 output not finite")
         rel_ab, rel_y = max_rel(ab, ab0), max_rel(y, y0)
         err = max(float((ab - ab0).abs().max()), float((y - y0).abs().max()))
+        ab2 = K.fused_lanczos_fact(Lt, W, Rt, xt, KRYLOV)
+        y2 = K.fused_lanczos_replay(Lt, W, Rt, xt, wts, ab)
+        repeat = bool(torch.equal(ab, ab2) and torch.equal(y, y2))
+        fact_equals_k4 = bool(torch.equal(
+            ab, K.fused_lanczos_streamed(Lt, W, Rt, xt, KRYLOV)[1]))
+        # each pass pipeline against f64 with the same Ritz weights
+        ops64 = [t.double() for t in ops]
+        ab64 = K.fused_lanczos_fact_plain(*ops64, KRYLOV)
+        y64 = K.fused_lanczos_replay_plain(*ops64, wts.double(), ab64)
+        y0_own = K.fused_lanczos_replay_plain(Lt, W, Rt, xt, wts, ab0)
+
+        def ferr(a, ref):
+            return float((a.double() - ref).norm() / ref.norm())
+
+        f64 = dict(kernel_ab=ferr(ab, ab64), twin_ab=ferr(ab0, ab64),
+                   kernel_y=ferr(y, y64), twin_y=ferr(y0_own, y64))
+        del ops64, y64, y0_own
         fact_ms = cuda_ms(torch, lambda: K.fused_lanczos_fact(
             Lt, W, Rt, xt, KRYLOV), 5)
         replay_ms = cuda_ms(torch, lambda: K.fused_lanczos_replay(
@@ -393,33 +436,51 @@ def k3_phase(torch):
         wd = torch.ones((2, KRYLOV), device=xd.device)  # dead v_j add 0
         yd = K.fused_lanczos_replay(Ld, Wd, Rd, xd, wd, abd)
         yd0 = K.fused_lanczos_replay_plain(Ld, Wd, Rd, xd, wd, abd0)
+        routes = route_times(torch, K, sol, lambda *a, **kw:
+                             K.fused_lanczos_ground_state(*a, two_pass=True,
+                                                          **kw))
     sentinels = breakdown_sentinels(abd) and bool(
         torch.equal(yd[0], xd[0] / 3) and (yd[1] == 0).all())
     same = bool(torch.equal(abd, abd0) and torch.equal(yd, yd0))
-    bound_ms, bound_by = bound(*lanczos_work(1, chi, 2 * KRYLOV - 1, 1))
+    work = lanczos_work(1, chi, 2 * KRYLOV - 1, 1)
+    bound_ms, bound_by = bound(*work)
+    bound_tc_ms = bound_tc(*work)[0]
     ms = fact_ms + replay_ms
     emit(phase="k3_two_pass", shape=[1, chi, D, M, KRYLOV],
          max_rel_err_ab=rel_ab, max_rel_err_y=rel_y, max_abs_err=err,
+         f64_rel_err=f64, repeat_same_bits=repeat,
+         fact_equals_k4_ab=fact_equals_k4,
          breakdown_sentinels=sentinels, breakdown_equals_twin=same,
          fact_ms=fact_ms, replay_ms=replay_ms, ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by,
+         bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+         tflops_per_s=work[0] / ms / 1e9, plan=grid_plan(torch, K, chi),
          grid={k: K.last_grid[k] for k in ("fused_lanczos_fact",
-                                           "fused_lanczos_replay")})
+                                           "fused_lanczos_replay")},
+         seconds=time.perf_counter() - t0, **routes)
     check(rel_ab <= KERNEL_RTOL and rel_y <= KERNEL_RTOL,
           f"K3 disagrees with its twins: ab {rel_ab}, y {rel_y}")
+    check(f64["kernel_ab"] <= 4 * f64["twin_ab"]
+          and f64["kernel_y"] <= 4 * f64["twin_y"],
+          f"K3 against f64 beyond 4x its f32 twins: {f64}")
+    check(repeat, "K3: a repeat launch gave other bits")
+    check(fact_equals_k4, "K3's fact ab differs from K4's")
     check(sentinels and same, "K3 breakdown sentinels wrong")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, bound_tc_ms=bound_tc_ms)
 
 
 def k4_phase(torch):
     """K4, the streamed whole-Lanczos kernel, at the chi=512 path's shapes,
-    against its twin and against K2 (the same function) on the same
-    operands."""
+    against its twin and an f64 run of it (within 4x the f32 twin's
+    error) and against K2 (the same function) on the same operands, a
+    repeat launch and the breakdown chains bit for bit; timed beside the
+    same solve through the K7 tier."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
     chi = TIER_CHI["streamed"]
-    _, (Lt, W, Rt, xt) = hermitian_operands(torch, 1, chi, D, M, seed=4)
+    sol, ops = hermitian_operands(torch, 1, chi, D, M, seed=4)
+    Lt, W, Rt, xt = ops
     with highest_precision():
         V, ab = K.fused_lanczos_streamed(Lt, W, Rt, xt, KRYLOV)
         V0, ab0 = K.fused_lanczos_plain(Lt, W, Rt, xt, KRYLOV)
@@ -430,6 +491,11 @@ def k4_phase(torch):
         rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
         k2_rel_ab, k2_rel_V = max_rel(ab, ab2), max_rel(V, V2)
         err = max(float((ab - ab0).abs().max()), float((V - V0).abs().max()))
+        del V2, ab2
+        V3, ab3 = K.fused_lanczos_streamed(Lt, W, Rt, xt, KRYLOV)
+        repeat = bool(torch.equal(V, V3) and torch.equal(ab, ab3))
+        del V3, ab3
+        f64 = lanczos_f64_errors(torch, ops, V, ab, V0, ab0, KRYLOV)
         ms = cuda_ms(torch, lambda: K.fused_lanczos_streamed(
             Lt, W, Rt, xt, KRYLOV), 5)
         k2_ms = cuda_ms(torch, lambda: K.fused_lanczos(
@@ -440,25 +506,35 @@ def k4_phase(torch):
         Ld, Wd, Rd, xd = breakdown_operands(torch, 2, chi)
         Vd, abd = K.fused_lanczos_streamed(Ld, Wd, Rd, xd, KRYLOV)
         Vd0, abd0 = K.fused_lanczos_plain(Ld, Wd, Rd, xd, KRYLOV)
+        grid = K.last_grid["fused_lanczos_streamed"]
+        routes = route_times(torch, K, sol,
+                             K.fused_lanczos_ground_state_streamed)
     sentinels = breakdown_sentinels(abd, Vd)
     same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
-    grid = K.last_grid["fused_lanczos_streamed"]
     flops, nbytes = lanczos_work(1, chi, KRYLOV, KRYLOV)
     bound_ms, bound_by = bound(flops, nbytes)
+    bound_tc_ms = bound_tc(flops, nbytes)[0]
     emit(phase="k4_fused_lanczos_streamed", shape=[1, chi, D, M, KRYLOV],
          max_rel_err_ab=rel_ab, max_rel_err_V=rel_V, max_abs_err=err,
-         k2_rel_err_ab=k2_rel_ab, k2_rel_err_V=k2_rel_V,
-         breakdown_sentinels=sentinels, breakdown_equals_twin=same, grid=grid,
+         k2_rel_err_ab=k2_rel_ab, k2_rel_err_V=k2_rel_V, f64_rel_err=f64,
+         repeat_same_bits=repeat, breakdown_sentinels=sentinels,
+         breakdown_equals_twin=same, grid=grid, plan=grid_plan(torch, K, chi),
          ms=ms, k2_ms=k2_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by, gflops_per_s=flops / ms / 1e6)
+         bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+         tflops_per_s=flops / ms / 1e9, seconds=time.perf_counter() - t0,
+         **routes)
     check(rel_ab <= KERNEL_RTOL and rel_V <= KERNEL_RTOL,
           f"K4 disagrees with its twin: ab {rel_ab}, V {rel_V}")
     check(k2_rel_ab <= KERNEL_RTOL and k2_rel_V <= KERNEL_RTOL,
           f"K4 disagrees with K2: ab {k2_rel_ab}, V {k2_rel_V}")
+    check(f64["kernel_ab"] <= 4 * f64["twin_ab"]
+          and f64["kernel_V"] <= 4 * f64["twin_V"],
+          f"K4 against f64 beyond 4x its f32 twin: {f64}")
+    check(repeat, "K4: a repeat launch gave other bits")
     check(grid > 1, f"K4 ran one instance on {grid} block(s)")
     check(sentinels and same, "K4 breakdown sentinels wrong")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, bound_tc_ms=bound_tc_ms)
 
 
 def k7_phase(torch):
@@ -699,6 +775,7 @@ def k5_phase(torch):
     cases = [(B, chi, torch.float32) for B, chi in K5_SHAPES]
     cases.append((3, 40, torch.float64))
     for B, chi, dtype in cases:
+        t0 = time.perf_counter()
         rng = np.random.default_rng(chi + B)
         dev = torch.device(DEV)
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
@@ -749,7 +826,8 @@ def k5_phase(torch):
                  isometry_err=iso, reconstruction_rel_err=recon,
                  wrappers_equal_kernel=same, grid=K.last_grid["fused_gauge_env"],
                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 tflops_per_s=flops / ms / 1e9)
+                 tflops_per_s=flops / ms / 1e9,
+                 seconds_since_case_start=time.perf_counter() - t0)
             tol = KERNEL_RTOL if dtype == torch.float32 else 1e-10
             check(max(rels) <= tol,
                   f"K5 ({side}, B={B}, chi={chi}, {dtype}) disagrees with "

@@ -33,8 +33,8 @@ PARTS = {
     "stage 2": ("    tc32::gemm_stream<TC_BM, TC_BN, true>(\n        nt * ct",
                 "    if (LEAVE_OUT != 2)\n"
                 "    tc32::gemm_stream<TC_BM, TC_BN, true>(\n        nt * ct"),
-    "fold": ("    fold_in_place<MC, NTC>(cs, P, chi, nt, M);",
-             "    if (LEAVE_OUT != 3) fold_in_place<MC, NTC>(cs, P, chi, nt, M);"),
+    "fold": ("    tc32::fold_in_place<MC, NTC>(",
+             "    if (LEAVE_OUT != 3) tc32::fold_in_place<MC, NTC>("),
     "recurrence passes": (
         "    if (v4) {\n      float4* w4",
         "    if (LEAVE_OUT == 4) {\n    } else if (v4) {\n      float4* w4"),

@@ -133,68 +133,6 @@ __global__ void __launch_bounds__(heff::THREADS)
 
 constexpr int TC_BM = 64, TC_BN = 64;  // the f32 kernel's tile GEMMs
 using TcTile = tc32::Tile<TC_BM, TC_BN>;
-// ring depth of the f32 kernel's tile streams
-
-// Sum over the block; every thread gets the result.  Fixed order.
-template <typename T>
-__device__ T block_sum_t(T v, T* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = heff::warp_sum(v);
-  __syncthreads();  // earlier readers of red are done
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    T s = lane < (int)(blockDim.x >> 5) ? red[lane] : T(0);
-    s = heff::warp_sum(s);
-    if (lane == 0) red[32] = s;
-  }
-  __syncthreads();
-  return red[32];
-}
-
-// The coupling fold in place: for each (c, b) of the instance, the M*nt
-// values P[(w,c)][(t,b)] become Q[(v,c)][(s,b)] = sum_{w,t}
-// cs[(w*nt+t)*M*nt + v*nt+s] P[(w,c)][(t,b)] at the same positions.
-template <int MC, int NTC>
-__device__ void fold_in_place(const float* cs, float* P, int chi, int nt_,
-                              int M_) {
-  const int M = MC ? MC : M_, nt = NTC ? NTC : nt_;
-  const int mn = M * nt;
-  const size_t ldp = (size_t)nt * chi, wstep = (size_t)chi * ldp;
-  for (int e = threadIdx.x; e < chi * chi; e += blockDim.x) {
-    const int c = e / chi, col = e - c * chi;
-    float* p = P + (size_t)c * ldp + col;
-    if constexpr (MC > 0 && NTC > 0) {
-      constexpr int MN = MC * NTC;
-      float pv[MN], q[MN];
-#pragma unroll
-      for (int j = 0; j < MN; ++j) {
-        pv[j] = p[(j / NTC) * wstep + (j % NTC) * chi];
-        q[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < MN; ++j)
-#pragma unroll
-        for (int i = 0; i < MN; ++i) q[i] += cs[j * MN + i] * pv[j];
-#pragma unroll
-      for (int i = 0; i < MN; ++i) p[(i / NTC) * wstep + (i % NTC) * chi] = q[i];
-    } else {
-      float q[tc32::MAX_MN];
-#pragma unroll
-      for (int i = 0; i < tc32::MAX_MN; ++i) q[i] = 0.f;
-      for (int j = 0; j < mn; ++j) {
-        const float pv = p[(j / nt) * wstep + (j % nt) * chi];
-        const float* cw = cs + j * mn;
-#pragma unroll
-        for (int i = 0; i < tc32::MAX_MN; ++i)
-          if (i < mn) q[i] += cw[i] * pv;
-      }
-#pragma unroll
-      for (int i = 0; i < tc32::MAX_MN; ++i)
-        if (i < mn) p[(i / nt) * wstep + (i % nt) * chi] = q[i];
-    }
-  }
-}
 
 // f32: the matvec on the 3xTF32 tensor-core tile GEMM.  MC, NTC: M and nt
 // at compile time (the path shapes M=3, nt=2 or 4), or 0: at run time.
@@ -224,11 +162,7 @@ __global__ void __launch_bounds__(tc32::THREADS, 2)
   ab += b * 2 * m;
   float* P = Pbuf + b * mn * plane;
   float* w = wbuf + b * n;
-  for (int e = tid; e < mn * mn; e += blockDim.x) {
-    const int t = e % nt, s = (e / nt) % nt, v = (e / (nt * nt)) % M,
-              wi = e / (nt * nt * M);
-    cs[(wi * nt + t) * mn + v * nt + s] = W[b * w_stride + e];
-  }
+  tc32::load_fold_couplings(cs, W + b * w_stride, M, nt);
   // 16-byte cp.async where every row start is 16-byte aligned, and 16-byte
   // vector passes where every vector is
   const bool vec =
@@ -241,7 +175,7 @@ __global__ void __launch_bounds__(tc32::THREADS, 2)
   double part = 0.0;
   for (size_t e = tid; e < n; e += blockDim.x)
     part += (double)x0[e] * (double)x0[e];
-  const float nrm = (float)sqrt(block_sum_t(part, red));
+  const float nrm = (float)sqrt(heff::block_sum(part, red));
   bool alive = nrm > delta;
   float inv = alive ? 1.f / nrm : 0.f;
   for (size_t e = tid; e < n; e += blockDim.x) V[e] = x0[e] * inv;
@@ -281,7 +215,7 @@ __global__ void __launch_bounds__(tc32::THREADS, 2)
         },
         acc1, ring);
     __syncthreads();  // every P value is complete
-    fold_in_place<MC, NTC>(cs, P, chi, nt, M);
+    tc32::fold_in_place<MC, NTC>(cs, P, chi, nt, M, tid, blockDim.x);
     __syncthreads();  // every Q value is complete
 
     // stage 2: w_s = sum_v Q_vs @ Rt_v, job (s, output tile), M nkv stages
@@ -312,7 +246,7 @@ __global__ void __launch_bounds__(tc32::THREADS, 2)
           });
         },
         acc2, ring);
-    const float alpha = (float)block_sum_t(part, red);  // publishes w
+    const float alpha = (float)heff::block_sum(part, red);  // publishes w
     if (tid == 0) ab[j] = alive ? alpha : LARGE;
 
     // each thread updates, and later rescales, only its own elements: 16
@@ -343,7 +277,7 @@ __global__ void __launch_bounds__(tc32::THREADS, 2)
       for (size_t e = tid; e < n; e += blockDim.x)
         w[e] = update(w[e], v[e], vp[e]);
     }
-    const float beta = (float)sqrt(block_sum_t(part, red));
+    const float beta = (float)sqrt(heff::block_sum(part, red));
     const bool alive_next = alive && beta > delta;
     if (j < m - 1) {
       if (tid == 0) ab[m + j] = alive_next ? beta : 0.f;

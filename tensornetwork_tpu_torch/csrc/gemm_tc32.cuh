@@ -1,7 +1,9 @@
 // The f32 GEMM core of the large-chi streamed matvecs (streamed_matvec.cu,
-// streamed_matvec_xl.cu) and of the resident Lanczos kernel
+// streamed_matvec_xl.cu), of the resident Lanczos kernel
 // (fused_lanczos.cu, whose matvec streams 64 x 64 tiles through
-// gemm_stream inside one block per instance): fp32-accurate products on
+// gemm_stream inside one block per instance) and of the grid-wide Lanczos
+// kernels (lanczos_grid.cuh, the same streams spread over every block of
+// the card, with the fold in place): fp32-accurate products on
 // the tensor cores by 3xTF32, and the streamed matvec built from it as two
 // large GEMMs and a coupling fold.
 //
@@ -353,6 +355,66 @@ __device__ __forceinline__ void for_each_acc(
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         f(m0 + i * 16 + (e >> 1) * 8, n0 + j * 8 + (e & 1), acc[i][j][e]);
+}
+
+// cs[(w*nt+t)*M*nt + v*nt+s] = C[w][v][s][t], the couplings of one
+// instance as fold_in_place reads them (the caller syncs around it).
+__device__ __forceinline__ void load_fold_couplings(float* cs, const float* C,
+                                                    int M, int nt) {
+  const int mn = M * nt;
+  for (int e = threadIdx.x; e < mn * mn; e += blockDim.x) {
+    const int t = e % nt, s = (e / nt) % nt, v = (e / (nt * nt)) % M,
+              w = e / (nt * nt * M);
+    cs[(w * nt + t) * mn + v * nt + s] = C[e];
+  }
+}
+
+// The coupling fold in place, over the elements first, first + step, ...
+// of one instance's chi x chi (c, b) plane: the M*nt values
+// P[(w,c)][(t,b)] of an element become Q[(v,c)][(s,b)] = sum_{w,t}
+// cs[(w*nt+t)*M*nt + v*nt+s] P[(w,c)][(t,b)] at the same positions, so
+// each thread reads and writes only its own elements.  MC, NTC: M and nt
+// at compile time (all loads of an element in flight at once), or 0.
+template <int MC, int NTC>
+__device__ void fold_in_place(const float* cs, float* P, int chi, int nt_,
+                              int M_, int first, int step) {
+  const int M = MC ? MC : M_, nt = NTC ? NTC : nt_;
+  const int mn = M * nt;
+  const size_t ldp = (size_t)nt * chi, wstep = (size_t)chi * ldp;
+  for (int e = first; e < chi * chi; e += step) {
+    const int c = e / chi, col = e - c * chi;
+    float* p = P + (size_t)c * ldp + col;
+    if constexpr (MC > 0 && NTC > 0) {
+      constexpr int MN = MC * NTC;
+      float pv[MN], q[MN];
+#pragma unroll
+      for (int j = 0; j < MN; ++j) {
+        pv[j] = p[(j / NTC) * wstep + (j % NTC) * chi];
+        q[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < MN; ++j)
+#pragma unroll
+        for (int i = 0; i < MN; ++i) q[i] += cs[j * MN + i] * pv[j];
+#pragma unroll
+      for (int i = 0; i < MN; ++i)
+        p[(i / NTC) * wstep + (i % NTC) * chi] = q[i];
+    } else {
+      float q[MAX_MN];
+#pragma unroll
+      for (int i = 0; i < MAX_MN; ++i) q[i] = 0.f;
+      for (int j = 0; j < mn; ++j) {
+        const float pv = p[(j / nt) * wstep + (j % nt) * chi];
+        const float* cw = cs + j * mn;
+#pragma unroll
+        for (int i = 0; i < MAX_MN; ++i)
+          if (i < mn) q[i] += cw[i] * pv;
+      }
+#pragma unroll
+      for (int i = 0; i < MAX_MN; ++i)
+        if (i < mn) p[(i / nt) * wstep + (i % nt) * chi] = q[i];
+    }
+  }
 }
 
 // Stage 1: one block per (row tile of M chi rows, column tile within one

@@ -1,8 +1,8 @@
 // Device code shared by the H_eff matvec kernel (heff_matvec.cu), the fused
-// Lanczos kernel (fused_lanczos.cu), the grid-wide Lanczos kernels
-// (lanczos_grid.cuh), the fused epilogue (fused_gauge_env.cu) and the f64
-// instances of the streamed matvecs (streamed_matvec.cu,
-// streamed_matvec_xl.cu; their f32 instances run on gemm_tc32.cuh).
+// epilogue (fused_gauge_env.cu) and the f64 instances of the fused Lanczos
+// kernel (fused_lanczos.cu), the grid-wide Lanczos kernels
+// (lanczos_grid.cuh) and the streamed matvecs (streamed_matvec.cu,
+// streamed_matvec_xl.cu); their f32 instances run on gemm_tc32.cuh.
 //
 // Index conventions (kernel layout, see ops/kernels.py prepare_operands):
 //   Lt[w][c][a]   W[w][v][s][t]   Rt[v][b][d]   x[t][a][b]   ->  y[s][c][d]
@@ -190,12 +190,9 @@ __device__ T tile_dot(const T (&acc)[SUB][SUB], const T* X, int ld,
 
 // One output tile of stage 2.  job in [0, d*nt*nt).  Needs the couplings
 // in sm.wc (load_couplings) and every P plane of the instance complete.
-// With `dotv` (d planes like y) returns this thread's share of
-// <dotv, y> over the tile, else 0.
 template <typename T>
-__device__ T stage2_tile(int job, const T* Rt, const T* P, T* y, int chi,
-                         int d, int M, Smem<T>& sm,
-                         const T* dotv = nullptr) {
+__device__ void stage2_tile(int job, const T* Rt, const T* P, T* y, int chi,
+                            int d, int M, Smem<T>& sm) {
   const int nt = num_tiles(chi);
   const int s = job / (nt * nt), tile = job % (nt * nt);
   const size_t plane = (size_t)chi * chi;
@@ -207,8 +204,6 @@ __device__ T stage2_tile(int job, const T* Rt, const T* P, T* y, int chi,
     tile_gemm(acc, aload, Rt + v * plane, chi, chi, chi, chi, r0, c0, sm);
   }
   store_tile(acc, y + s * plane, chi, chi, chi, r0, c0);
-  return dotv ? tile_dot(acc, dotv + s * plane, chi, chi, chi, r0, c0)
-              : T(0);
 }
 
 template <typename T>
@@ -218,22 +213,27 @@ __device__ T warp_sum(T v) {
   return v;
 }
 
-// Sum over the block; every thread gets the result.  Fixed order, so the
-// result does not change from run to run.
+// Sum over the block through red[0:33] in shared memory; every thread gets
+// the result.  Fixed order, so the result does not change from run to run.
 template <typename T>
-__device__ T block_sum(T v, Smem<T>& sm) {
+__device__ T block_sum(T v, T* red) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   v = warp_sum(v);
-  __syncthreads();  // earlier readers of sm.red are done
-  if (lane == 0) sm.red[wid] = v;
+  __syncthreads();  // earlier readers of red are done
+  if (lane == 0) red[wid] = v;
   __syncthreads();
   if (wid == 0) {
-    T s = lane < (int)(blockDim.x >> 5) ? sm.red[lane] : T(0);
+    T s = lane < (int)(blockDim.x >> 5) ? red[lane] : T(0);
     s = warp_sum(s);
-    if (lane == 0) sm.red[32] = s;
+    if (lane == 0) red[32] = s;
   }
   __syncthreads();
-  return sm.red[32];
+  return red[32];
+}
+
+template <typename T>
+__device__ T block_sum(T v, Smem<T>& sm) {
+  return block_sum(v, sm.red);
 }
 
 // Q_tile (+)= c * acc over this thread's outputs (masked); `first`
@@ -260,10 +260,15 @@ __device__ void fold_tile(const T (&acc)[SUB][SUB], T c, T* Q, int chi,
 // sum of p[0:n] in a fixed order (thread i takes i, i+256, ..., then the
 // fixed block tree); every block gets the same bits
 template <typename T>
-__device__ T ordered_sum(const T* p, int n, Smem<T>& sm) {
+__device__ T ordered_sum(const T* p, int n, T* red) {
   T s = T(0);
   for (int i = threadIdx.x; i < n; i += blockDim.x) s += p[i];
-  return block_sum(s, sm);
+  return block_sum(s, red);
+}
+
+template <typename T>
+__device__ T ordered_sum(const T* p, int n, Smem<T>& sm) {
+  return ordered_sum(p, n, sm.red);
 }
 
 // out[b] = the n slots part[b*n ... b*n+n-1] summed in a fixed order, one

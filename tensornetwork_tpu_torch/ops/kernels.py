@@ -38,10 +38,12 @@ The local solve is a ladder of tiers chosen by bond dimension
 
 In f32 these two are two tensor-core GEMMs in 3xTF32 and a coupling fold
 (``csrc/gemm_tc32.cuh``; :func:`tc32_tile` picks each GEMM's tile,
-:func:`tf32x3_matmul_plain` models the product), and so is the resident
+:func:`tf32x3_matmul_plain` models the product), and so are the resident
 tier's :func:`fused_lanczos`, with the same GEMMs as tile streams inside
-one block per instance; K3, K4, K5 and K1, and every f64 instance, are
-fp32/fp64 SIMT.
+one block per instance, and the two-pass and streamed tiers' grid-wide
+matvecs (K3, K4: the tile jobs spread over every block of the card,
+stage 2 split over the MPO bond, :func:`lgrid_plan`); K5 and K1, and
+every f64 instance, are fp32/fp64 SIMT.
 
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 (:func:`fused_lanczos_ground_state_2s`).
@@ -70,7 +72,7 @@ blocks of the last launch of the grid-wide kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -93,7 +95,7 @@ last_grid: Dict[str, int] = {}
 
 _MAX_COUPLINGS = 1024  # heff::MAX_COUPLINGS in csrc/heff.cuh
 _TILE = 64             # heff::TILE: output tile edge
-_SEG = 4096            # lgrid::SEG in csrc/lanczos_grid.cuh: segment length
+_SEG = 1024            # lgrid::SEG in csrc/lanczos_grid.cuh: segment length
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -102,12 +104,11 @@ _ARGTYPES = {
     "tn_heff_matvec": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tn_fused_lanczos": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _D, _P],
-    "tn_fused_lanczos_streamed": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _D, _P, _P],
-    "tn_fused_lanczos_fact": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _D, _P, _P],
-    "tn_fused_lanczos_replay": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _I, _I, _I, _I, _I, _D, _P, _P],
+    "tn_fused_lanczos_streamed": [_P, _L] + [_P] * 10 + [_I] * 7
+                                 + [_D, _P, _P],
+    "tn_fused_lanczos_fact": [_P, _L] + [_P] * 10 + [_I] * 7 + [_D, _P, _P],
+    "tn_fused_lanczos_replay": [_P, _L] + [_P] * 11 + [_I] * 7
+                               + [_D, _P, _P],
     "tn_streamed_matvec": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
     "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -430,16 +431,79 @@ def _check_krylov(m: int) -> None:
         raise ValueError("num_krylov_vecs must be >= 1")
 
 
-def _grid_scratch(B: int, chi: int, d: int, M: int, **kw):
+# The block tiles (BM, BN) of the f32 grid-wide Lanczos kernels' GEMM
+# stages (csrc/lanczos_grid.cuh), largest first, each with the blocks an
+# SM it launches at (its register budget, tc32::min_blocks).
+_GRID_TILES = {(128, 128): 1, (64, 64): 2}
+
+
+class GridPlan(NamedTuple):
+    """The f32 grid Lanczos's matvec plan: the block tile (BM, BN) of both
+    GEMM stages, the split of stage 2 over the MPO bond into ``split``
+    slots, the tile jobs of each stage and the resident blocks."""
+    tile: Tuple[int, int]
+    split: int
+    jobs1: int
+    jobs2: int
+    blocks: int
+
+
+def lgrid_plan(chi: int, d: int, M: int, B: int, sms: int,
+               tile: Optional[Tuple[int, int]] = None) -> GridPlan:
+    """The plan of the f32 grid-wide Lanczos kernels (K3 fact and replay,
+    K4).  Stage 1, P = [Lt_w] @ [v_t], has (M chi) x chi outputs per (t,
+    instance); stage 2, w_s = sum_v Q_vs Rt_v, chi x chi per (s,
+    instance), and is split over v into M slots when its unsplit grid
+    gives less than 7/8 of the resident blocks a job (:func:`tc32_tile`'s
+    rule).  The tile: 128x128 (one block an SM) where its stage-1 grid
+    gives at least half the SMs a job, else 64x64 (two blocks an SM), or
+    ``tile``.  Never a function of the mode, so replay and K4 run fact's
+    jobs."""
+    def jobs(tile, rows, groups):
+        return -(-rows // tile[0]) * -(-chi // tile[1]) * groups
+
+    if tile is None:
+        big = next(iter(_GRID_TILES))
+        tile = big if 2 * jobs(big, M * chi, d * B) >= sms else (64, 64)
+    blocks = _GRID_TILES[tile] * sms
+    split = 1 if 8 * jobs(tile, chi, d * B) >= 7 * blocks else M
+    return GridPlan(tile, split, jobs(tile, M * chi, d * B),
+                    jobs(tile, chi, d * B * split), blocks)
+
+
+def _grid_scratch(B: int, chi: int, d: int, M: int, split: int, **kw):
     """Scratch of the grid-wide Lanczos kernels (csrc/lanczos_grid.cuh):
-    P, w, the <v, w> partials, the norm partials and the start flags."""
-    nt = -(-chi // _TILE)
+    P (stage 1, then the fold in place), the ``split`` slots of stage 2
+    (slot 0 then holds w), the <v, w> and norm partials of each segment
+    (float64) and the start flags."""
     nseg = -(-(d * chi * chi) // _SEG)
-    return (torch.empty((B, M * d, chi, chi), **kw),
-            torch.empty((B, d, chi, chi), **kw),
-            torch.empty((B, d * nt * nt), **kw),
-            torch.empty((B, nseg), **kw),
+    f64 = dict(kw, dtype=torch.float64)
+    return (torch.empty((B, M * d * chi * chi), **kw),
+            torch.empty((B, split, d, chi, chi), **kw),
+            torch.empty((B, nseg), **f64),
+            torch.empty((B, nseg), **f64),
             torch.empty((B,), **kw))
+
+
+def _launch_lanczos_grid(name: str, Lt, W, Rt, x0, m: int, delta: float,
+                         io) -> None:
+    """One launch of a grid-wide Lanczos kernel: ``io`` are the mode's own
+    tensors (V or the ring, ab; replay: weights, ab, y, ring).  f32 takes
+    the split of :func:`lgrid_plan` at the tensors' SM count, the same for
+    every mode; f64 (the SIMT core) takes none."""
+    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    tile, split = _TC32_TILES[-1], 1
+    if x0.dtype == torch.float32:
+        tile, split = lgrid_plan(chi, d, M, B, _sm_count(x0.device))[:2]
+    P, slots, apart, bpart, alive0 = _grid_scratch(
+        B, chi, d, M, split, dtype=x0.dtype, device=x0.device)
+    partials = (bpart,) if name == "tn_fused_lanczos_replay" else (apart, bpart)
+    _launch_grid(name, x0.dtype, x0.device,
+                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
+                 x0.data_ptr(), *(t.data_ptr() for t in io), P.data_ptr(),
+                 slots.data_ptr(), *(t.data_ptr() for t in partials),
+                 alive0.data_ptr(), B, chi, d, M, m,
+                 _TC32_TILES.index(tile), split, float(delta))
 
 
 # ---------------------------------------------------------------------------
@@ -498,8 +562,10 @@ def fused_lanczos_streamed(Lt, W, Rt, x0, num_krylov_vecs: int,
     the card works on every instance's matvec tiles and recurrence.
     Counterpart of ``make_fused_lanczos_streamed``, the one-site chi=512
     tier; its ``n_chunks`` (the TPU's VMEM chunking) has no meaning here.
-    The twin is :func:`fused_lanczos_plain`."""
-    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    f32 runs its matvecs on the tensor cores in 3xTF32 (fp32-accurate;
+    ``csrc/lanczos_grid.cuh``, tiles by :func:`lgrid_plan`), f64 on the
+    SIMT core.  The twin is :func:`fused_lanczos_plain`."""
+    B, chi, d, _, _ = _validate(Lt, W, Rt, x0)
     m = num_krylov_vecs
     _check_krylov(m)
     if x0.device.type == "cpu":
@@ -507,12 +573,8 @@ def fused_lanczos_streamed(Lt, W, Rt, x0, num_krylov_vecs: int,
     kw = dict(dtype=x0.dtype, device=x0.device)
     V = torch.empty((B, m, d, chi, chi), **kw)
     ab = torch.empty((B, 2, m), **kw)
-    scratch = _grid_scratch(B, chi, d, M, **kw)
-    _launch_grid("tn_fused_lanczos_streamed", x0.dtype, x0.device,
-                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
-                 x0.data_ptr(), V.data_ptr(), ab.data_ptr(),
-                 *(t.data_ptr() for t in scratch), B, chi, d, M, m,
-                 float(delta))
+    _launch_lanczos_grid("tn_fused_lanczos_streamed", Lt, W, Rt, x0, m,
+                         delta, (V, ab))
     launch_counts["fused_lanczos_streamed"] += 1
     return V, ab
 
@@ -533,8 +595,10 @@ def fused_lanczos_fact(Lt, W, Rt, x0, num_krylov_vecs: int,
                        delta: float = 1e-8):
     """Pass 1 of the two-pass Lanczos: the ``ab`` (B, 2, m) of
     :func:`fused_lanczos` without storing the basis.  Counterpart of
-    ``make_fused_lanczos_2pass``'s ``fact``, the one-site chi=384 tier."""
-    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    ``make_fused_lanczos_2pass``'s ``fact``, the one-site chi=384 tier.
+    Its matvecs and sums are :func:`fused_lanczos_streamed`'s, so its
+    ``ab`` is that kernel's, bit for bit."""
+    B, chi, d, _, _ = _validate(Lt, W, Rt, x0)
     m = num_krylov_vecs
     _check_krylov(m)
     if x0.device.type == "cpu":
@@ -542,12 +606,8 @@ def fused_lanczos_fact(Lt, W, Rt, x0, num_krylov_vecs: int,
     kw = dict(dtype=x0.dtype, device=x0.device)
     ring = torch.empty((B, 2, d, chi, chi), **kw)
     ab = torch.empty((B, 2, m), **kw)
-    scratch = _grid_scratch(B, chi, d, M, **kw)
-    _launch_grid("tn_fused_lanczos_fact", x0.dtype, x0.device,
-                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
-                 x0.data_ptr(), ring.data_ptr(), ab.data_ptr(),
-                 *(t.data_ptr() for t in scratch), B, chi, d, M, m,
-                 float(delta))
+    _launch_lanczos_grid("tn_fused_lanczos_fact", Lt, W, Rt, x0, m, delta,
+                         (ring, ab))
     launch_counts["fused_lanczos_fact"] += 1
     return ab
 
@@ -556,6 +616,14 @@ def fused_lanczos_replay_plain(Lt, W, Rt, x0, weights, ab,
                                delta: float = 1e-8):
     """Plain-PyTorch twin of :func:`fused_lanczos_replay` (the same
     recurrence, coefficients read from ``ab``)."""
+    return _replay_recurrence(lambda v: heff_matvec_plain(Lt, W, Rt, v), x0,
+                              weights, ab, delta)
+
+
+def _replay_recurrence(matvec, x0, weights, ab, delta: float):
+    """:func:`_lanczos_recurrence` rerun with the coefficients ``ab`` of a
+    first pass, around ``matvec(v) -> H v``: returns ``y = sum_j
+    weights[:, j] v_j``."""
     m = ab.shape[-1]
     v, _ = _start(x0, delta)
     v_prev = torch.zeros_like(x0)
@@ -564,7 +632,7 @@ def fused_lanczos_replay_plain(Lt, W, Rt, x0, weights, ab,
         y = y + _bc(weights[:, j]) * v
         if j == m - 1:
             break
-        w = heff_matvec_plain(Lt, W, Rt, v)
+        w = matvec(v)
         # a dead step's +1e10 sentinel never reaches the update (its v is
         # zero); clamped all the same
         alpha = ab[:, 0, j]
@@ -583,8 +651,10 @@ def fused_lanczos_replay(Lt, W, Rt, x0, weights, ab, delta: float = 1e-8):
     """Pass 2 of the two-pass Lanczos: reruns :func:`fused_lanczos_fact`'s
     recurrence with its ``ab`` and returns ``y = sum_j weights[:, j] v_j``
     (B, d, chi, chi), unnormalised.  ``weights`` (B, m).  Counterpart of
-    ``make_fused_lanczos_2pass``'s ``replay``."""
-    B, chi, d, M, w_stride = _validate(Lt, W, Rt, x0)
+    ``make_fused_lanczos_2pass``'s ``replay``.  It regenerates fact's
+    basis bit for bit: with ``weights`` e_j it returns
+    :func:`fused_lanczos_streamed`'s v_j."""
+    B, chi, d, _, _ = _validate(Lt, W, Rt, x0)
     m = ab.shape[-1]
     _check_krylov(m)
     if ab.shape != (B, 2, m) or weights.shape != (B, m):
@@ -596,13 +666,8 @@ def fused_lanczos_replay(Lt, W, Rt, x0, weights, ab, delta: float = 1e-8):
     kw = dict(dtype=x0.dtype, device=x0.device)
     y = torch.empty((B, d, chi, chi), **kw)
     ring = torch.empty((B, 2, d, chi, chi), **kw)
-    P, w, _, bpart, alive0 = _grid_scratch(B, chi, d, M, **kw)
-    _launch_grid("tn_fused_lanczos_replay", x0.dtype, x0.device,
-                 W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
-                 x0.data_ptr(), weights.data_ptr(), ab.data_ptr(),
-                 y.data_ptr(), ring.data_ptr(), P.data_ptr(), w.data_ptr(),
-                 bpart.data_ptr(), alive0.data_ptr(), B, chi, d, M, m,
-                 float(delta))
+    _launch_lanczos_grid("tn_fused_lanczos_replay", Lt, W, Rt, x0, m, delta,
+                         (weights, ab, y, ring))
     launch_counts["fused_lanczos_replay"] += 1
     return y
 

@@ -118,8 +118,12 @@ def _breakdown(device, dtype, chi=8, d=2):
     return Lt, W, Rt, x
 
 
+# chi=50: rows not 16-byte aligned (the 4-byte cp.async path); chi=200:
+# ragged for the 64 and 128 tiles; B=8, chi=256: no split of stage 2
+# (lgrid_plan)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,chi", [(1, 16), (1, 80), (3, 64)])
+@pytest.mark.parametrize("B,chi", [(1, 16), (1, 80), (3, 64), (1, 50),
+                                   (1, 200), (8, 256)])
 def test_streamed_lanczos_kernel_matches_twin_and_k2(cuda, dtype, B, chi):
     Lt, W, Rt, xt = _operands(B, chi, 2, 3, dtype, cuda)
     TK.reset_launch_counts()
@@ -137,7 +141,7 @@ def test_streamed_lanczos_kernel_matches_twin_and_k2(cuda, dtype, B, chi):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("chi", [16, 80])
+@pytest.mark.parametrize("chi", [16, 80, 50, 200])
 def test_two_pass_kernels_match_twins(cuda, dtype, chi):
     m = 6
     Lt, W, Rt, xt = _operands(2, chi, 2, 3, dtype, cuda)
@@ -163,6 +167,92 @@ def test_two_pass_kernels_match_twins(cuda, dtype, chi):
         e_j[:, j] = 1.0
         assert torch.equal(TK.fused_lanczos_replay(Lt, W, Rt, xt, e_j, ab),
                            V[:, j])
+
+
+def _two_pass(Lt, W, Rt, xt, m, wts, fact, replay):
+    ab = fact(Lt, W, Rt, xt, m)
+    return ab, replay(Lt, W, Rt, xt, wts, ab)
+
+
+@pytest.mark.parametrize("chi", [64, 200])
+def test_grid_lanczos_f32_error_against_f64(cuda, chi):
+    # the 3xTF32 products keep K3's (ab, y) and K4's (ab, V) errors against
+    # an f64 run of the twins on the same f32 operands within 4x the f32
+    # twins' (cuBLAS SGEMM), as K2's; one TF32 product would read ~1e3 x.
+    # y: each pass pipeline with the same Ritz weights.
+    m = 6
+    ops = _operands(2, chi, 2, 3, torch.float32, cuda, seed=chi)
+    ops64 = [t.double() for t in ops]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    wts = torch.randn((2, m), device=cuda, generator=g)
+
+    def err(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    V, ab = TK.fused_lanczos_streamed(*ops, m)
+    V64, ab64 = TK.fused_lanczos_plain(*ops64, m)
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(*ops, m)
+        y0 = TK.fused_lanczos_replay_plain(*ops, wts, ab0)
+    abf, y = _two_pass(*ops, m, wts, TK.fused_lanczos_fact,
+                       TK.fused_lanczos_replay)
+    y64 = TK.fused_lanczos_replay_plain(*ops64, wts.double(), ab64)
+    assert err(ab, ab64) <= 4 * err(ab0, ab64), (err(ab, ab64), err(ab0, ab64))
+    assert err(V, V64) <= 4 * err(V0, V64), (err(V, V64), err(V0, V64))
+    assert err(abf, ab64) <= 4 * err(ab0, ab64)
+    assert err(y, y64) <= 4 * err(y0, y64), (err(y, y64), err(y0, y64))
+
+
+@pytest.mark.parametrize("tile", [(128, 128), (64, 64)])
+@pytest.mark.parametrize("chi", [200, 256])
+def test_grid_lanczos_kernels_at_each_tile(cuda, monkeypatch, chi, tile):
+    # each block tile of the f32 grid kernels (lgrid_plan picks one by
+    # shape), forced: against the twins, fact's ab is K4's and replay
+    # regenerates K4's basis, bit for bit; chi=200 is ragged for both tiles
+    m = 6
+    plan = TK.lgrid_plan
+    monkeypatch.setattr(TK, "lgrid_plan", lambda *a: plan(*a, tile=tile))
+    ops = _operands(1, chi, 2, 3, torch.float32, cuda, seed=chi)
+    V, ab = TK.fused_lanczos_streamed(*ops, m)
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(*ops, m)
+    assert _rel(ab, ab0) < TOL[torch.float32][1]
+    assert _rel(V, V0) < TOL[torch.float32][1]
+    assert torch.equal(TK.fused_lanczos_fact(*ops, m), ab)
+    e = torch.zeros((1, m), device=cuda)
+    e[:, m - 1] = 1.0
+    assert torch.equal(TK.fused_lanczos_replay(*ops, e, ab), V[:, m - 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,chi", [(2, 64), (1, 200)])
+def test_two_pass_kernels_repeat_launch_same_bits(cuda, dtype, B, chi):
+    # fixed-slot sums in a fixed order, no float atomics: a second launch
+    # of fact and of replay gives the same bits
+    m = 5
+    ops = _operands(B, chi, 2, 3, dtype, cuda, seed=chi + B)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    wts = torch.randn((B, m), dtype=dtype, device=cuda, generator=g)
+    ab, y = _two_pass(*ops, m, wts, TK.fused_lanczos_fact,
+                      TK.fused_lanczos_replay)
+    ab2, y2 = _two_pass(*ops, m, wts, TK.fused_lanczos_fact,
+                        TK.fused_lanczos_replay)
+    assert torch.equal(ab, ab2) and torch.equal(y, y2)
+    assert torch.equal(TK.fused_lanczos_replay(*ops, wts, ab), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_lanczos_kernels_breakdown(cuda, dtype):
+    # the breakdown chains equal the twins' bits: the operators are small
+    # integers, which the 3xTF32 split keeps exact
+    Lt, W, Rt, x = _breakdown(cuda, dtype, chi=64)
+    V, ab = TK.fused_lanczos_streamed(Lt, W, Rt, x, 4)
+    V0, ab0 = TK.fused_lanczos_plain(Lt, W, Rt, x, 4)
+    assert torch.equal(ab, ab0) and torch.equal(V, V0)
+    assert torch.equal(TK.fused_lanczos_fact(Lt, W, Rt, x, 4), ab0)
+    wd = torch.ones((2, 4), dtype=dtype, device=cuda)
+    assert torch.equal(TK.fused_lanczos_replay(Lt, W, Rt, x, wd, ab),
+                       TK.fused_lanczos_replay_plain(Lt, W, Rt, x, wd, ab0))
 
 
 def _matvec_operands(cuda, dtype, B, chi, nt, per_instance, seed):

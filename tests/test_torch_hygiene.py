@@ -107,3 +107,20 @@ def test_every_kernel_has_its_source_and_a_launch_count():
         for fn in (f for f, s in kernels._SOURCES.items() if s == src):
             for dtype in kernels._TYPES[fn]:
                 assert f'extern "C" int {fn}{kernels._SUFFIX[dtype]}' in text
+
+
+def test_every_entry_point_takes_its_argtypes():
+    # ctypes passes exactly the argtypes: each C entry point's parameter
+    # list must have as many entries, or a launch passes the wrong values
+    import re
+
+    from tensornetwork_tpu_torch.ops import _build, kernels
+
+    for fn, src in kernels._SOURCES.items():
+        text = (_build.CSRC / src).read_text()
+        for dtype in kernels._TYPES[fn]:
+            name = fn + kernels._SUFFIX[dtype]
+            params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+            assert params, name
+            assert (len(params.group(1).split(","))
+                    == len(kernels._ARGTYPES[fn])), name
