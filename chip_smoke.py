@@ -766,9 +766,12 @@ def gauge_env_work(B, chi, d, M, qi, ci, elem=4):
 
 def k5_phase(torch):
     """K5, the fused gauge-and-environment epilogue, against its twin: at
-    the batched path's shape (B=256, chi=64) and at B=1, chi=256, in both
-    directions, f32; and in f64 at a small shape.  The solver-layout
-    wrappers are checked to return the kernel-layout call's bits."""
+    the batched path's shape (B=256, chi=64), at B=1, chi=256 and at B=1,
+    chi=64, in both directions, f32; and in f64 at a small shape.  Each
+    case runs the route gauge_env_route picks and is timed beside the other
+    route on the same operands where that one takes the shape.  The
+    solver-layout wrappers are checked to return the kernel-layout call's
+    bits, and a repeat launch to give the same bits."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
     ret = None
@@ -783,6 +786,10 @@ def k5_phase(torch):
         W = as_t(rng.standard_normal((M, M, D, D)))
         A = as_t(rng.standard_normal((B, chi, D, chi)))
         qi, ci = K.polar_iters(dtype)
+        route = K.gauge_env_route(chi, D, M, dtype, B)
+        # the grid route takes every shape; the resident one only its own
+        other = ("grid" if route == "resident" else "resident"
+                 if K.gauge_env_resident_fits(chi, D, M, dtype) else None)
         for side in ("left", "right"):
             # the operands as the wrappers prepare them
             if side == "left":
@@ -792,10 +799,13 @@ def k5_phase(torch):
                 Ak = A.permute(0, 2, 3, 1).reshape(B, D * chi, chi)
             Ek, Ak = env.permute(0, 2, 1, 3).contiguous(), Ak.contiguous()
             with highest_precision():
+                K.reset_launch_counts()
                 out = K.fused_gauge_env(Wk, Ek, Ak, qi, ci)
+                took = K.route_counts["fused_gauge_env_" + route]
                 ref = K.fused_gauge_env_plain(Wk, Ek, Ak, qi, ci)
                 wrapped = getattr(K, f"fused_gauge_env_{side}")(env, W, A, qi,
                                                                 ci)
+                again = K.fused_gauge_env(Wk, Ek, Ak, qi, ci)
                 torch.cuda.synchronize()
                 check(all(bool(torch.isfinite(t).all()) for t in out),
                       f"K5 ({side}, B={B}, chi={chi}) output not finite")
@@ -807,6 +817,9 @@ def k5_phase(torch):
                 recon = float((Q @ P - Ak).norm() / Ak.norm())
                 ms = cuda_ms(torch, lambda: K.fused_gauge_env(Wk, Ek, Ak, qi,
                                                               ci), 5)
+                other_ms = (cuda_ms(torch, lambda: K.fused_gauge_env(
+                    Wk, Ek, Ak, qi, ci, route=other), 5) if other else None)
+                grid = K.last_grid["fused_gauge_env"]
                 plain_ms = cuda_ms(torch, lambda: K.fused_gauge_env_plain(
                     Wk, Ek, Ak, qi, ci), 3)
             Qw = wrapped[0].permute(0, 2, 1, 3) if side == "left" else \
@@ -815,19 +828,24 @@ def k5_phase(torch):
             same = bool(torch.equal(Qw.reshape(B, D * chi, chi), out[0])
                         and torch.equal(Pw, out[1])
                         and torch.equal(wrapped[2].permute(0, 2, 1, 3), out[2]))
+            repeat = all(bool(torch.equal(a, b)) for a, b in zip(out, again))
             elem = torch.finfo(dtype).bits // 8
             flops, nbytes = gauge_env_work(B, chi, D, M, qi, ci, elem)
             bound_ms, bound_by = bound(flops, nbytes,
                                        FP32_PEAK if dtype == torch.float32
                                        else FP64_PEAK)
+            bound_tc_ms = (bound_tc(flops, nbytes)[0]
+                           if dtype == torch.float32 else None)
             emit(phase="k5_fused_gauge_env", side=side, dtype=str(dtype),
-                 shape=[B, chi, D, M], iters=[qi, ci],
+                 shape=[B, chi, D, M], iters=[qi, ci], route=route,
                  max_rel_err_Q_P_Enew=rels, max_abs_err=err,
                  isometry_err=iso, reconstruction_rel_err=recon,
-                 wrappers_equal_kernel=same, grid=K.last_grid["fused_gauge_env"],
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 tflops_per_s=flops / ms / 1e9,
+                 wrappers_equal_kernel=same, repeat_same_bits=repeat,
+                 grid=grid, ms=ms, other_route=other, other_route_ms=other_ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bound_tc_ms=bound_tc_ms, tflops_per_s=flops / ms / 1e9,
                  seconds_since_case_start=time.perf_counter() - t0)
+            check(took == 1, f"K5 (B={B}, chi={chi}) did not take route {route}")
             tol = KERNEL_RTOL if dtype == torch.float32 else 1e-10
             check(max(rels) <= tol,
                   f"K5 ({side}, B={B}, chi={chi}, {dtype}) disagrees with "
@@ -836,10 +854,13 @@ def k5_phase(torch):
                   f"K5 ({side}, B={B}, chi={chi}): |Q^T Q - I| {iso}, "
                   f"|QP - A|/|A| {recon}")
             check(same, f"K5 {side} wrapper does not return the kernel's bits")
+            check(repeat, f"K5 ({side}, B={B}, chi={chi}) repeat launch "
+                  "changed the bits")
             if ret is None:
                 ret = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
+                           library_ms=None, bound_tc_ms=bound_tc_ms,
+                           k5_route=route, other_route_ms=other_ms)
     return ret
 
 
@@ -1377,6 +1398,14 @@ def large_chi_phase(torch, chi, tier, sweeps, solve_ms):
     return launches
 
 
+def check_k5_resident(launches, routes):
+    """Every K5 launch of a chi=64 fused sweep took the resident route."""
+    check(routes["fused_gauge_env_resident"] == launches["fused_gauge_env"]
+          and routes["fused_gauge_env_grid"] == 0,
+          f"K5 at chi={CHI} left the resident route: {launches['fused_gauge_env']}"
+          f" launches, routes {routes}")
+
+
 _KP = "tensornetwork_tpu/ops/kernels.py:"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("heff_matvec", "heff_matvec.cu", _KP + "48"),
@@ -1411,10 +1440,12 @@ def main():
     single_phase(torch)
     As, renvs, mpo, sweep_s = batched_phase(torch)
     launches = dict(K.launch_counts)
-    emit(phase="main_path_launches", chi=CHI, **launches)
+    routes = dict(K.route_counts)
+    emit(phase="main_path_launches", chi=CHI, **launches, routes=routes)
     check(launches["fused_lanczos"] > 0 and launches["heff_matvec"] > 0
           and launches["fused_gauge_env"] > 0,
           f"a kernel of the main path never launched: {launches}")
+    check_k5_resident(launches, routes)
 
     states = {"xla": (As, renvs)}
 
@@ -1422,9 +1453,11 @@ def main():
     K.reset_launch_counts()
     As, renvs, _, fused_s = batched_phase(torch, "fused")
     counts = dict(K.launch_counts)
-    emit(phase="fused_epilogue_launches", chi=CHI, **counts)
+    routes = dict(K.route_counts)
+    emit(phase="fused_epilogue_launches", chi=CHI, **counts, routes=routes)
     check(counts["fused_gauge_env"] > 0 and counts["fused_lanczos"] > 0,
           f"a kernel of the fused-epilogue path never launched: {counts}")
+    check_k5_resident(counts, routes)
     launches["fused_gauge_env"] += counts["fused_gauge_env"]
     launches["fused_lanczos"] += counts["fused_lanczos"]
     states["fused"] = (As, renvs)

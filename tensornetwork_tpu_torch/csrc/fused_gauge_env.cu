@@ -1,6 +1,6 @@
 // Fused site epilogue of the one-site sweep: the Newton-Schulz polar gauge
-// of the (d*chi, chi) panel and the environment growth, one cooperative
-// launch for the whole batch.
+// of the (d*chi, chi) panel and the environment growth, one launch for the
+// whole batch, on one of two routes (ops/kernels.py gauge_env_route).
 //
 // Replaces: tensornetwork_tpu/ops/kernels.py make_fused_gauge_env (the
 // function that reaches its pallas_call), called through
@@ -18,29 +18,61 @@
 //
 // What bounds it on the H100: operations.  At chi=64, d=2, M=3 an instance
 // does ~59 MFLOP (14 quintic steps of 2.6, 7 cubic of 2.1, P, U and Enew)
-// against ~0.2 MB in and out; fp32 SIMT (67 TFLOP/s) bounds it.  What
-// limits it in practice is the chain of 21 dependent steps, each a few
+// against ~0.2 MB in and out: 0.224 ms at B=256 on fp32 SIMT (67 TFLOP/s),
+// 0.091 ms in 3xTF32 on the tensor cores (3 x flops at 495 TFLOP/s).
+// What limits it in practice is the chain of 21 dependent steps, each a few
 // small GEMMs.
 //
-// Design: the TPU kernel keeps the panel and its iterates in VMEM, one
-// grid program per instance.  On the H100 the panel alone is 128 KB at
-// chi=128 and 512 KB at chi=256, past the 227 KB of shared memory, so the
-// iterates live in device memory (mostly L2), ping-ponging between Q and a
-// scratch panel so that the last one lands in Q; only GEMM operand chunks
-// and the couplings are staged through shared memory.  One cooperative
-// launch runs every step of every instance: the blocks walk the 64x64
-// output tiles of each stage over the whole batch, with grid.sync()
-// between dependent stages (3 per quintic step, 2 per cubic).  At B=256,
-// chi=64 that spreads the batch over the card; at B=1, chi=256 it splits
-// each GEMM of the one instance over 16-32 blocks.  The transposed
-// operands of X^T Y are staged k-major, so neighbouring threads read
-// neighbouring addresses.  The couplings are folded into the A operand of
-// Enew while it is staged (heff::LoadQ, as in K1's stage 2).  The norm is
-// summed from fixed partial slots in a fixed order: no float atomics.  No
-// tensor cores (see heff.cuh).
+// Route "resident" (f32, chi padded to CP = 32, 64, 96 or 128 where the
+// footprint below fits one block): the TPU kernel's design, one block per
+// instance with the panel resident on the SM for all 21 steps.  Dynamic
+// shared memory holds
+//   X   the panel, d*CP rows at pitch CP + 8 (= 8 mod 32 words),
+//   G   one CP x CP matrix at pitch CP + 4 (= 4 mod 32): G, then Mx over
+//       it, and at the end the staging of A_s, E_w and Q_vs,
+//   the couplings and 33 doubles of block sums:
+//   bytes = 272 + 4 (d CP (CP + 8) + CP (CP + 4) + M^2 d^2) <= 232,448,
+// so d=2, M=3 takes chi <= 128 (207,264 bytes at CP=128; 54,688 at
+// chi=64, two blocks an SM by registers: B=256 is one wave on 132 SMs).
+// Stages are separated by __syncthreads() only; no iterate goes to device
+// memory.  X is updated in place: a row block of X' = a X + b X F needs
+// only the same rows of X, so the warps sum a row block in registers
+// (128 x 64 at chi=64, 32 floats a thread), the block syncs, and each
+// thread writes its own outputs.  Mx overwrites G the same way: G G is
+// summed in registers, the block syncs, Mx = b G + c G G is written.
+// After the polar, Q and P = sum_s X_s^T A_s (A_s staged into G) are
+// written, U = X_t^T E_w (E_w staged into G) goes to a device scratch,
+// and Enew_v = sum_s Q_vs X_s takes each Q_vs = sum W U as the couplings
+// are folded in while it is staged into G (zero couplings skipped).
+// Products: 3xTF32 m16n8k8 mma.sync (gemm_tc32.cuh's split and mma), each
+// 8-deep step's three products summed from zero and added to the
+// accumulator in f32, so each value passes one round-toward-zero of the
+// tensor cores per 8-deep sum (the 21 polar steps would carry a chained
+// bias into |Q^T Q - I| and P).  Operand layout: X^T X and X^T Y read X
+// k-major, X F reads it by rows.  At pitch = 8 (mod 32) a k-major fragment
+// load (rows k0+q, columns g) hits 32 banks; a row read does too when the
+// 8-deep step's positions q and q+4 hold k = 2q and 2q+1, one 8-byte load
+// (the B operand F, at pitch = 4 (mod 32), follows that order without a
+// conflict).  G G and the tail products have one 2-way conflicted operand.
+// |A|^2 is summed in f64 by each thread and a fixed block tree: no float
+// atomics, so a repeat launch gives the same bits.
+//
+// Route "grid" (every chi up to the admission, chi <= 347 at d=2, M=3, and
+// every f64 call): the panel alone is 128 KB at chi=128 and 512 KB at
+// chi=256, so the iterates live in device memory (mostly L2),
+// ping-ponging between Q and a scratch panel so that the last one lands in
+// Q; only GEMM operand chunks and the couplings are staged through shared
+// memory.  One cooperative launch runs every step of every instance: the
+// blocks walk the 64x64 output tiles of each stage over the whole batch,
+// with grid.sync() between dependent stages (3 per quintic step, 2 per
+// cubic).  The transposed operands of X^T Y are staged k-major, so
+// neighbouring threads read neighbouring addresses.  The couplings are
+// folded into the A operand of Enew while it is staged (heff::LoadQ, as in
+// K1's stage 2).  The norm is summed from fixed partial slots in a fixed
+// order: no float atomics.  fp32/fp64 SIMT (heff.cuh).
 #include <cooperative_groups.h>
 
-#include "heff.cuh"
+#include "gemm_tc32.cuh"
 
 namespace {
 
@@ -50,7 +82,7 @@ using heff::SUB;
 using heff::THREADS;
 using heff::TILE;
 
-constexpr int SEG = THREADS * 16;  // elements per norm-partial job
+constexpr int SEG = THREADS * 16;  // elements per norm-partial job (4096)
 
 template <typename T>
 struct Args {
@@ -309,19 +341,372 @@ int run(const T* W, const T* E, const T* A, T* Q, T* P, T* Enew, T* X2, T* G,
   return launch<T>(a, grid, (cudaStream_t)stream);
 }
 
+// ---------------------------------------------------------------------------
+// Route "resident": one block per instance, the panel in shared memory
+// ---------------------------------------------------------------------------
+namespace res {
+
+using tc32::mma;
+using tc32::split;
+
+constexpr int THREADS = 256;     // 8 warps
+constexpr int RED_BYTES = 272;   // 33 doubles of block sums, to 16 bytes
+constexpr int GRAN = 32;         // chi is padded with zeros to CP = 32 k
+constexpr int MAX_CP = 128;      // the largest instance (G G: 64 floats a
+                                 // thread in registers)
+constexpr size_t SMEM_LIMIT = 232448;  // one H100 block's shared memory
+
+// The footprint of an instance at padded chi CP: X (d CP rows, pitch
+// CP + 8), G (CP rows, pitch CP + 4), the couplings and the block sums.
+// ops/kernels.py gauge_env_resident_bytes is the same formula.
+inline size_t smem_bytes(int cp, int d, int M) {
+  return RED_BYTES +
+         4 * ((size_t)d * cp * (cp + 8) + (size_t)cp * (cp + 4) +
+              (size_t)M * M * d * d);
+}
+
+template <int CP>
+struct Shape {
+  static constexpr int PX = CP + 8;  // = 8 (mod 32): k-major and paired reads
+  static constexpr int PG = CP + 4;  // = 4 (mod 32): row reads, paired k
+  // square products (CP x CP out): warps 2 x 4, SQ x SQ fragments each
+  static constexpr int SQ = CP / 32;
+  // the panel product X F: warps 4 x 2, PM x PN fragments each, row
+  // blocks of RB rows (128 x 64 at CP=64: 32 floats a thread)
+  static constexpr int PN = CP / 16;
+  static constexpr int PM = CP == 64 ? 2 : 1;
+  static constexpr int RB = 64 * PM;
+  // two blocks an SM where the footprint allows it (128 registers)
+  static constexpr int MIN_BLOCKS = CP <= 64 ? 2 : 1;
+};
+
+// How warp_mma reads its A operand A(r, k): by rows at S[r*pa + k]
+// (A_ROW), by rows with the paired k order below (A_PAIR), or k-major at
+// S[k*pa + r] (A_COL: the A^T of X^T Y).
+enum { A_ROW = 0, A_PAIR = 1, A_COL = 2 };
+
+// acc[i][j] += sum_{k < K} A(r0 + 16i + ., k) B(k, c0 + 8j + .) over the
+// warp's MT x NT m16n8k8 fragments, B(k, c) = Bs[k*pb + c], in 3xTF32:
+// each 8-deep step's small x big, big x small and big x big products are
+// summed from zero and the sum is added to acc in f32.  With A_PAIR the
+// step's fragment positions q and q+4 hold k = 2q and 2q+1, so that a row
+// read of A is one 8-byte load; B's reads follow the same order.
+// Fragments of rows >= rows are skipped (the test is uniform in a warp).
+template <int MT, int NT, int AL>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
+                                         const float* As, int pa,
+                                         const float* Bs, int pb, int K,
+                                         int r0, int c0, int rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int kb0 = AL == A_PAIR ? 2 * q : q;
+  const int kb1 = AL == A_PAIR ? 2 * q + 1 : q + 4;
+#pragma unroll 4
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* p = Bs + c0 + 8 * j + g;
+      split(p[(k0 + kb0) * pb], bb[j][0], bs[j][0]);
+      split(p[(k0 + kb1) * pb], bb[j][1], bs[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = r0 + 16 * i;
+      if (r >= rows) continue;
+      float a[4];
+      if constexpr (AL == A_COL) {
+        const float* p = As + (k0 + q) * pa + r + g;
+        a[0] = p[0];
+        a[1] = p[8];
+        a[2] = p[4 * pa];
+        a[3] = p[4 * pa + 8];
+      } else if constexpr (AL == A_PAIR) {
+        const float2 lo =
+            *reinterpret_cast<const float2*>(As + (r + g) * pa + k0 + 2 * q);
+        const float2 hi = *reinterpret_cast<const float2*>(
+            As + (r + g + 8) * pa + k0 + 2 * q);
+        a[0] = lo.x;
+        a[1] = hi.x;
+        a[2] = lo.y;
+        a[3] = hi.y;
+      } else {
+        const float* p = As + (r + g) * pa + k0 + q;
+        a[0] = p[0];
+        a[1] = p[8 * pa];
+        a[2] = p[4];
+        a[3] = p[8 * pa + 4];
+      }
+      uint32_t ab[4], asm_[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(a[e], ab[e], asm_[e]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float dd[4] = {0.f, 0.f, 0.f, 0.f};
+        mma(dd, asm_, bb[j]);
+        mma(dd, ab, bs[j]);
+        mma(dd, ab, bb[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += dd[e];
+      }
+    }
+  }
+}
+
+// f(r, c, value) for each accumulator of the warp's fragments at (r0, c0),
+// rows >= rows skipped
+template <int MT, int NT, typename F>
+__device__ __forceinline__ void each_acc(const float (&acc)[MT][NT][4],
+                                         int r0, int c0, int rows, F f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (r0 + 16 * i >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int r = r0 + 16 * i + g, c = c0 + 8 * j + 2 * q;
+      f(r, c, acc[i][j][0]);
+      f(r, c + 1, acc[i][j][1]);
+      f(r + 8, c, acc[i][j][2]);
+      f(r + 8, c + 1, acc[i][j][3]);
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// dst[a*PG + c] = src[a*chi + c] for a, c < chi, zero in the padding
+template <int CP>
+__device__ __forceinline__ void stage(float* dst, const float* src, int chi) {
+  for (int e = threadIdx.x; e < CP * CP; e += THREADS) {
+    const int a = e / CP, c = e % CP;
+    dst[a * Shape<CP>::PG + c] =
+        a < chi && c < chi ? src[(size_t)a * chi + c] : 0.f;
+  }
+}
+
+template <int CP>
+__global__ void __launch_bounds__(THREADS, Shape<CP>::MIN_BLOCKS)
+    resident_kernel(const float* __restrict__ W, const float* __restrict__ E,
+                    const float* __restrict__ A, float* __restrict__ Q,
+                    float* __restrict__ P, float* __restrict__ Enew,
+                    float* U, int chi, int d, int M, int quintic,
+                    int cubic) {
+  using S = Shape<CP>;
+  constexpr int PX = S::PX, PG = S::PG, SQ = S::SQ;
+  extern __shared__ float4 smem4[];
+  double* red = reinterpret_cast<double*>(smem4);
+  float* X = reinterpret_cast<float*>(smem4) + RED_BYTES / 4;
+  float* G = X + d * CP * PX;
+  float* wc = G + CP * PG;  // wc[(v*d+s)*(M*d) + w*d+t] = W[w][v][s][t]
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int rows = d * CP;
+  const size_t b = blockIdx.x, plane = (size_t)chi * chi;
+  A += b * d * plane;
+  Q += b * d * plane;
+  E += b * M * plane;
+  P += b * plane;
+  Enew += b * M * plane;
+  U += b * M * d * plane;
+  const int md = M * d;
+  for (int e = tid; e < md * md; e += THREADS) {
+    const int t = e % d, s = (e / d) % d, v = (e / (d * d)) % M,
+              w = e / (d * d * M);
+    wc[(v * d + s) * md + w * d + t] = W[e];
+  }
+  // the warp's origin in a square product (2 x 4 warps) and in a row
+  // block of X F (4 x 2 warps)
+  const int sr = (warp / 4) * 16 * SQ, sc = (warp % 4) * 8 * SQ;
+  const int pr = (warp / 2) * 16 * S::PM, pc = (warp % 2) * 8 * S::PN;
+
+  // X_0 = A / (|A| 1.01 + 1e-30), zero in the padding; |A|^2 in f64
+  double part = 0.0;
+  for (int e = tid; e < rows * CP; e += THREADS) {
+    const int r = e / CP, c = e % CP, s = r / CP, a = r % CP;
+    const float v =
+        a < chi && c < chi ? A[((size_t)s * chi + a) * chi + c] : 0.f;
+    X[r * PX + c] = v;
+    part += (double)v * (double)v;
+  }
+  const float nrm = (float)sqrt(heff::block_sum(part, red));
+  const float inv = 1.f / (nrm * 1.01f + 1e-30f);
+  for (int e = tid; e < rows * CP; e += THREADS)  // this thread's elements
+    X[(e / CP) * PX + e % CP] *= inv;
+  __syncthreads();
+
+  const int steps = quintic + cubic;
+  for (int j = 0; j < steps; ++j) {
+    const bool quin = j < quintic;
+    {  // G = X^T X, written as it is summed (nothing reads G meanwhile)
+      float acc[SQ][SQ][4];
+      zero(acc);
+      warp_mma<SQ, SQ, A_COL>(acc, X, PX, X, PX, rows, sr, sc, CP);
+      each_acc(acc, sr, sc, CP, [&](int r, int c, float v) {
+        G[r * PG + c] = v;
+      });
+    }
+    __syncthreads();
+    if (quin) {  // Mx = b G + c G G over G
+      float acc[SQ][SQ][4];
+      zero(acc);
+      warp_mma<SQ, SQ, A_ROW>(acc, G, PG, G, PG, CP, sr, sc, CP);
+      __syncthreads();  // every read of G is done
+      each_acc(acc, sr, sc, CP, [&](int r, int c, float v) {
+        float* p = G + r * PG + c;
+        *p = -4.7750f * *p + 2.0315f * v;
+      });
+      __syncthreads();
+    }
+    // quintic: X' = a X + X Mx;  cubic: X' = 1.5 X - 0.5 X G; in place,
+    // a row block at a time
+    const float alpha = quin ? 3.4445f : 1.5f, beta = quin ? 1.f : -0.5f;
+    for (int rb = 0; rb < rows; rb += S::RB) {
+      float acc[S::PM][S::PN][4];
+      zero(acc);
+      warp_mma<S::PM, S::PN, A_PAIR>(acc, X, PX, G, PG, CP, rb + pr, pc,
+                                     rows);
+      __syncthreads();  // every read of these rows of X is done
+      each_acc(acc, rb + pr, pc, rows, [&](int r, int c, float v) {
+        float* p = X + r * PX + c;
+        *p = alpha * *p + beta * v;
+      });
+    }
+    __syncthreads();
+  }
+
+  // Q = X
+  for (int e = tid; e < rows * CP; e += THREADS) {
+    const int r = e / CP, c = e % CP, s = r / CP, a = r % CP;
+    if (a < chi && c < chi)
+      Q[((size_t)s * chi + a) * chi + c] = X[r * PX + c];
+  }
+  float acc[SQ][SQ][4];
+  // P = sum_s X_s^T A_s, A_s staged into G
+  zero(acc);
+  for (int s = 0; s < d; ++s) {
+    stage<CP>(G, A + s * plane, chi);
+    __syncthreads();
+    warp_mma<SQ, SQ, A_COL>(acc, X + s * CP * PX, PX, G, PG, CP, sr, sc, CP);
+    __syncthreads();  // G is free
+  }
+  each_acc(acc, sr, sc, CP, [&](int r, int c, float v) {
+    if (r < chi && c < chi) P[(size_t)r * chi + c] = v;
+  });
+  // U[w*d+t] = X_t^T E_w, E_w staged into G
+  for (int w = 0; w < M; ++w) {
+    stage<CP>(G, E + w * plane, chi);
+    __syncthreads();
+    for (int t = 0; t < d; ++t) {
+      zero(acc);
+      warp_mma<SQ, SQ, A_COL>(acc, X + t * CP * PX, PX, G, PG, CP, sr, sc,
+                              CP);
+      float* u = U + (size_t)(w * d + t) * plane;
+      each_acc(acc, sr, sc, CP, [&](int r, int c, float v) {
+        if (r < chi && c < chi) u[(size_t)r * chi + c] = v;
+      });
+    }
+    __syncthreads();  // G is free; U is visible to the block
+  }
+  // Enew_v = sum_s Q_vs X_s, Q_vs = sum_{w,t} W[w,v,s,t] U[w*d+t] folded
+  // as it is staged into G
+  for (int v = 0; v < M; ++v) {
+    zero(acc);
+    for (int s = 0; s < d; ++s) {
+      const float* coef = wc + (v * d + s) * md;
+      for (int e = tid; e < CP * CP; e += THREADS) {
+        const int a = e / CP, c = e % CP;
+        float qv = 0.f;
+        if (a < chi && c < chi) {
+          const size_t off = (size_t)a * chi + c;
+          for (int i = 0; i < md; ++i) {
+            const float cf = coef[i];
+            if (cf != 0.f) qv += cf * U[i * plane + off];
+          }
+        }
+        G[a * PG + c] = qv;
+      }
+      __syncthreads();
+      warp_mma<SQ, SQ, A_ROW>(acc, G, PG, X + s * CP * PX, PX, CP, sr, sc,
+                              CP);
+      __syncthreads();  // G is free
+    }
+    float* out = Enew + v * plane;
+    each_acc(acc, sr, sc, CP, [&](int r, int c, float x) {
+      if (r < chi && c < chi) out[(size_t)r * chi + c] = x;
+    });
+  }
+}
+
+template <int CP>
+int launch_cp(const float* W, const float* E, const float* A, float* Q,
+              float* P, float* Enew, float* U, int B, int chi, int d, int M,
+              int quintic, int cubic, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(CP, d, M);
+  if (bytes > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kern = resident_kernel<CP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<B, THREADS, bytes, stream>>>(W, E, A, Q, P, Enew, U, chi, d, M,
+                                      quintic, cubic);
+  return (int)cudaGetLastError();
+}
+
+// One block per instance at CP = chi rounded up to 32.  Writes B to *grid.
+int launch(const float* W, const float* E, const float* A, float* Q,
+           float* P, float* Enew, float* U, int B, int chi, int d, int M,
+           int quintic, int cubic, int* grid, cudaStream_t stream) {
+  const int cp = (chi + GRAN - 1) / GRAN * GRAN;
+  if (B < 1 || chi < 1 || cp > MAX_CP || M * M * d * d > heff::MAX_COUPLINGS)
+    return (int)cudaErrorInvalidValue;
+  *grid = B;
+  switch (cp) {
+    case 32:
+      return launch_cp<32>(W, E, A, Q, P, Enew, U, B, chi, d, M, quintic,
+                           cubic, stream);
+    case 64:
+      return launch_cp<64>(W, E, A, Q, P, Enew, U, B, chi, d, M, quintic,
+                           cubic, stream);
+    case 96:
+      return launch_cp<96>(W, E, A, Q, P, Enew, U, B, chi, d, M, quintic,
+                           cubic, stream);
+    case 128:
+      return launch_cp<128>(W, E, A, Q, P, Enew, U, B, chi, d, M, quintic,
+                            cubic, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace res
+
 }  // namespace
 
 // W: (M,M,d,d) shared by the batch; E: (B,M,chi,chi); A: (B,d*chi,chi);
-// out Q: (B,d*chi,chi), P: (B,chi,chi), Enew: (B,M,chi,chi); scratch X2:
-// (B,d*chi,chi), G, Mx: (B,chi,chi), U: (B,M*d,chi,chi), part: (B,nseg)
-// with nseg = ceil(d*chi*chi/4096).  *grid receives the blocks launched.
+// out Q: (B,d*chi,chi), P: (B,chi,chi), Enew: (B,M,chi,chi); scratch U:
+// (B,M*d,chi,chi).  resident = 0: route "grid", with scratch X2:
+// (B,d*chi,chi), G, Mx: (B,chi,chi), part: (B,nseg), nseg =
+// ceil(d*chi*chi/4096) (SEG); resident = 1 (f32 only): route "resident",
+// where X2, G, Mx and part are not read (null), chi <= 128 and
+// res::smem_bytes fits one block.  *grid receives the blocks launched.
 // Returns the launch's cudaError_t.
 extern "C" int tn_fused_gauge_env_f32(const float* W, const float* E,
                                       const float* A, float* Q, float* P,
                                       float* Enew, float* X2, float* G,
                                       float* Mx, float* U, float* part, int B,
                                       int chi, int d, int M, int quintic,
-                                      int cubic, int* grid, void* stream) {
+                                      int cubic, int resident, int* grid,
+                                      void* stream) {
+  if (resident)
+    return res::launch(W, E, A, Q, P, Enew, U, B, chi, d, M, quintic, cubic,
+                       grid, (cudaStream_t)stream);
   return run<float>(W, E, A, Q, P, Enew, X2, G, Mx, U, part, B, chi, d, M,
                     quintic, cubic, grid, stream);
 }
@@ -331,8 +716,9 @@ extern "C" int tn_fused_gauge_env_f64(const double* W, const double* E,
                                       double* Enew, double* X2, double* G,
                                       double* Mx, double* U, double* part,
                                       int B, int chi, int d, int M,
-                                      int quintic, int cubic, int* grid,
-                                      void* stream) {
+                                      int quintic, int cubic, int resident,
+                                      int* grid, void* stream) {
+  if (resident) return (int)cudaErrorInvalidValue;
   return run<double>(W, E, A, Q, P, Enew, X2, G, Mx, U, part, B, chi, d, M,
                      quintic, cubic, grid, stream);
 }

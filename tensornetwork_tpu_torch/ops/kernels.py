@@ -42,8 +42,9 @@ In f32 these two are two tensor-core GEMMs in 3xTF32 and a coupling fold
 tier's :func:`fused_lanczos`, with the same GEMMs as tile streams inside
 one block per instance, and the two-pass and streamed tiers' grid-wide
 matvecs (K3, K4: the tile jobs spread over every block of the card,
-stage 2 split over the MPO bond, :func:`lgrid_plan`); K5 and K1, and
-every f64 instance, are fp32/fp64 SIMT.
+stage 2 split over the MPO bond, :func:`lgrid_plan`), and K5's resident
+route (the panel in one block's shared memory for all its polar steps);
+K1, K5's grid route, and every f64 instance, are fp32/fp64 SIMT.
 
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 (:func:`fused_lanczos_ground_state_2s`).
@@ -54,7 +55,9 @@ Beside the local solve:
   one-site sweep's polar gauge shift and environment growth in one launch
   (:func:`fused_gauge_env`, replaces ``make_fused_gauge_env``), taken by
   the sweep with ``epilogue_impl="fused"`` where
-  :func:`gauge_epilogue_admitted` admits the shape.
+  :func:`gauge_epilogue_admitted` admits the shape; one block per instance
+  where the panel fits its shared memory, else one cooperative launch
+  over the batch (:func:`gauge_env_route`).
 * :func:`transfer_chain` -- the batched MPS norm/overlap environment over
   a whole chain (replaces ``make_transfer_chain``), bf16 or f32 in, f32
   out, any chi: bf16 on the tensor cores with E resident on the SM across
@@ -88,14 +91,18 @@ launch_counts: Dict[str, int] = {
     "streamed_matvec": 0, "streamed_matvec_xl": 0, "fused_gauge_env": 0,
     "transfer_chain": 0, "gemm_chain": 0}
 # the route of each kernel launch of transfer_chain (transfer_chain_route)
+# and of fused_gauge_env (gauge_env_route)
 route_counts: Dict[str, int] = {"transfer_chain_resident": 0,
-                                "transfer_chain_tiled": 0}
+                                "transfer_chain_tiled": 0,
+                                "fused_gauge_env_resident": 0,
+                                "fused_gauge_env_grid": 0}
 # blocks of the last launch of each grid-wide (cooperative) kernel
 last_grid: Dict[str, int] = {}
 
 _MAX_COUPLINGS = 1024  # heff::MAX_COUPLINGS in csrc/heff.cuh
 _TILE = 64             # heff::TILE: output tile edge
 _SEG = 1024            # lgrid::SEG in csrc/lanczos_grid.cuh: segment length
+_SMEM_BYTES = 232_448  # shared memory one H100 block may use
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -113,7 +120,7 @@ _ARGTYPES = {
                            _I, _I, _I, _I, _I, _I, _P],
     "tn_streamed_matvec_xl": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P],
-    "tn_fused_gauge_env": [_P] * 11 + [_I] * 6 + [_P, _P],
+    "tn_fused_gauge_env": [_P] * 11 + [_I] * 7 + [_P, _P],
     "tn_transfer_chain": [_P] * 6 + [_I] * 5 + [_P],
     "tn_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -1034,6 +1041,59 @@ def gauge_epilogue_admitted(chi: int, d: int, M: int) -> bool:
     return 4 * chi * chi * (2 * M + 4 * d + 2 * M * d) <= _RESIDENT_BYTES
 
 
+# the resident route (csrc/fused_gauge_env.cu, namespace res): chi padded
+# to a multiple of 32, instances up to 128, and the bytes of its footprint
+_GAUGE_GRAN, _GAUGE_MAX_CP, _GAUGE_RED_BYTES = 32, 128, 272
+_GAUGE_SEG = 4096  # the grid route's norm segment: SEG = THREADS * 16
+
+
+def _gauge_cp(chi: int) -> int:
+    """chi padded with zeros to the resident route's multiple of 32."""
+    return -(-chi // _GAUGE_GRAN) * _GAUGE_GRAN
+
+
+def gauge_env_resident_bytes(chi: int, d: int, M: int) -> int:
+    """Shared memory of one block of K5's resident route (``res::smem_bytes``
+    in ``csrc/fused_gauge_env.cu``): at chi padded to CP, a multiple of 32,
+    the panel X (d CP rows at pitch CP + 8), G (CP rows at pitch CP + 4),
+    the M^2 d^2 couplings and 272 bytes of block sums."""
+    cp = _gauge_cp(chi)
+    return _GAUGE_RED_BYTES + 4 * (d * cp * (cp + 8) + cp * (cp + 4)
+                                   + M * M * d * d)
+
+
+def gauge_env_resident_fits(chi: int, d: int, M: int, dtype: torch.dtype) -> bool:
+    """Whether K5's resident route takes the shape: f32, chi <= 128 and
+    :func:`gauge_env_resident_bytes` <= 232,448."""
+    return (dtype == torch.float32 and _gauge_cp(chi) <= _GAUGE_MAX_CP
+            and gauge_env_resident_bytes(chi, d, M) <= _SMEM_BYTES)
+
+
+# The least batch at which the resident route beats the grid route, by
+# padded chi: one instance is one SM's work there, while the grid route
+# spreads it over the card.  benchmarks/k5_routes.py, d=2, M=3, on an
+# H100 80GB HBM3 at 700 W: resident / grid ms at chi=96 B=4 0.782 / 0.668,
+# B=8 0.786 / 1.063; at chi=128 B=32 1.572 / 1.475, B=64 1.605 / 2.036;
+# at chi <= 64 the resident route wins from B=1 (0.303 / 0.464 at chi=64).
+_GAUGE_MIN_BATCH = {96: 8, 128: 64}
+
+
+def gauge_env_route(chi: int, d: int, M: int, dtype: torch.dtype,
+                    batch: Optional[int] = None) -> str:
+    """The kernel route of :func:`fused_gauge_env` for CUDA tensors:
+    ``"resident"`` -- f32 whose panel, G and couplings fit one block's
+    shared memory (:func:`gauge_env_resident_bytes` <= 232,448 bytes, chi
+    <= 128; d=2, M=3: chi <= 128, the sweep's chi=64 at two blocks an SM),
+    one block per instance, at a ``batch`` (when given) of at least 8
+    instances at chi padded to 96 and 64 at 128 -- else ``"grid"`` (the
+    cooperative launch over the whole batch; every f64 call)."""
+    if not gauge_env_resident_fits(chi, d, M, dtype) or (
+            batch is not None
+            and batch < _GAUGE_MIN_BATCH.get(_gauge_cp(chi), 1)):
+        return "grid"
+    return "resident"
+
+
 def polar_iters(dtype: torch.dtype) -> Tuple[int, int]:
     """(quintic, cubic) Newton-Schulz steps of the fused epilogue: (14, 7)
     in float32, (20, 10) in float64, as the JAX package's sweep takes."""
@@ -1091,28 +1151,43 @@ def fused_gauge_env_plain(W, E, A, quintic_iters: int = 14,
     return X, P, Enew
 
 
-def fused_gauge_env(W, E, A, quintic_iters: int = 14, cubic_iters: int = 7):
+def fused_gauge_env(W, E, A, quintic_iters: int = 14, cubic_iters: int = 7,
+                    route: Optional[str] = None):
     """The fused epilogue on kernel-layout operands: W (M, M, d, d) shared
     by the batch, E (B, M, chi, chi) [w](in, out), A (B, d*chi, chi) with
     rows s-major.  Newton-Schulz polar of each panel (``quintic_iters``
     quintic then ``cubic_iters`` cubic steps), P = X^T A and the grown
     environment; returns ``(Q (B, d*chi, chi), P (B, chi, chi), Enew (B, M,
-    chi, chi))``.  Counterpart of ``make_fused_gauge_env``."""
+    chi, chi))``.  Counterpart of ``make_fused_gauge_env``.  CUDA tensors
+    take the kernel route :func:`gauge_env_route` picks, or ``route``
+    ("resident" or "grid", to time one against the other)."""
     B, chi, d, M = _validate_gauge_env(W, E, A)
+    if route not in (None, "resident", "grid"):
+        raise ValueError(f"unknown route {route!r}")
     if A.device.type == "cpu":
         return fused_gauge_env_plain(W, E, A, quintic_iters, cubic_iters)
+    if route is None:
+        route = gauge_env_route(chi, d, M, A.dtype, B)
+    if route == "resident" and not gauge_env_resident_fits(chi, d, M, A.dtype):
+        raise ValueError(f"the resident route does not take chi={chi}, d={d}, "
+                         f"M={M}, {A.dtype}")
     kw = dict(dtype=A.dtype, device=A.device)
-    nseg = -(-(d * chi * chi) // _SEG)
-    Q, X2 = torch.empty_like(A), torch.empty_like(A)
-    P, G, Mx = (torch.empty((B, chi, chi), **kw) for _ in range(3))
+    Q, P = torch.empty_like(A), torch.empty((B, chi, chi), **kw)
     Enew = torch.empty((B, M, chi, chi), **kw)
     U = torch.empty((B, M * d, chi, chi), **kw)
-    part = torch.empty((B, nseg), **kw)
+    if route == "grid":
+        X2 = torch.empty_like(A)
+        G, Mx = (torch.empty((B, chi, chi), **kw) for _ in range(2))
+        part = torch.empty((B, -(-(d * chi * chi) // _GAUGE_SEG)), **kw)
+    else:   # the panel and its iterates stay in shared memory
+        X2 = G = Mx = part = None
     _launch_grid("tn_fused_gauge_env", A.dtype, A.device,
-                 *(t.data_ptr() for t in (W, E, A, Q, P, Enew, X2, G, Mx, U,
-                                          part)),
-                 B, chi, d, M, quintic_iters, cubic_iters)
+                 *(_ptr(t) for t in (W, E, A, Q, P, Enew, X2, G, Mx, U,
+                                     part)),
+                 B, chi, d, M, quintic_iters, cubic_iters,
+                 int(route == "resident"))
     launch_counts["fused_gauge_env"] += 1
+    route_counts["fused_gauge_env_" + route] += 1
     return Q, P, Enew
 
 
@@ -1157,7 +1232,6 @@ def fused_gauge_env_right(R, W, A, quintic_iters: int = 14,
 # K6: the batched MPS transfer chain
 # ---------------------------------------------------------------------------
 
-_SMEM_BYTES = 232_448   # shared memory one H100 block may use
 _CHAIN_GRAN = 16        # transfer_chain.cu GRAN: the bf16 kernels' chi step
 
 

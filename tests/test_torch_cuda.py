@@ -499,9 +499,23 @@ def test_svd_masked_on_the_card_is_orthonormal(cuda, dtype):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,chi", [(3, 16), (4, 64), (1, 80), (1, 256)])
-def test_fused_gauge_env_kernel_matches_twin(cuda, dtype, B, chi):
+# (dtype, B, chi, route asked for, route taken): f32 takes the resident
+# route at chi padded to 32 and 64, and at 96 and 128 from 8 and 64
+# instances; each of its four instances also runs when asked; the grid
+# route takes the rest, f32 when asked, and f64
+@pytest.mark.parametrize("dtype,B,chi,ask,route", [
+    (torch.float32, 3, 16, None, "resident"),
+    (torch.float32, 4, 64, None, "resident"),
+    (torch.float32, 1, 80, "resident", "resident"),
+    (torch.float32, 1, 128, "resident", "resident"),
+    (torch.float32, 1, 80, None, "grid"),
+    (torch.float32, 1, 256, None, "grid"),
+    (torch.float32, 4, 64, "grid", "grid"),
+    (torch.float64, 3, 16, None, "grid"),
+    (torch.float64, 4, 64, None, "grid"),
+    (torch.float64, 1, 80, None, "grid"),
+    (torch.float64, 1, 256, None, "grid")])
+def test_fused_gauge_env_kernel_matches_twin(cuda, dtype, B, chi, ask, route):
     M, d = 3, 2
     g = torch.Generator(device=cuda).manual_seed(chi + B)
     kw = dict(dtype=dtype, device=cuda, generator=g)
@@ -509,9 +523,11 @@ def test_fused_gauge_env_kernel_matches_twin(cuda, dtype, B, chi):
     E = torch.randn((B, M, chi, chi), **kw) / chi
     A = torch.randn((B, d * chi, chi), **kw)
     qi, ci = TK.polar_iters(dtype)
+    assert ask is not None or TK.gauge_env_route(chi, d, M, dtype, B) == route
     TK.reset_launch_counts()
-    Q, P, Enew = TK.fused_gauge_env(W, E, A, qi, ci)
+    Q, P, Enew = TK.fused_gauge_env(W, E, A, qi, ci, route=ask)
     assert TK.launch_counts["fused_gauge_env"] == 1
+    assert TK.route_counts["fused_gauge_env_" + route] == 1
     assert TK.last_grid["fused_gauge_env"] >= 1
     with highest_precision():
         ref = TK.fused_gauge_env_plain(W, E, A, qi, ci)
@@ -523,8 +539,40 @@ def test_fused_gauge_env_kernel_matches_twin(cuda, dtype, B, chi):
     assert float((Q.mT @ Q - eye).abs().max()) < TOL[dtype][1]
     assert float((Q @ P - A).norm() / A.norm()) < TOL[dtype][1]
     # fixed-order sums: a second launch gives the same bits
-    Q2, P2, E2 = TK.fused_gauge_env(W, E, A, qi, ci)
+    Q2, P2, E2 = TK.fused_gauge_env(W, E, A, qi, ci, route=ask)
     assert torch.equal(Q, Q2) and torch.equal(P, P2) and torch.equal(Enew, E2)
+
+
+def test_fused_gauge_env_resident_rank_deficient_panel(cuda):
+    # rank 40 of 64 columns on the resident route: on the panel's range Q
+    # is an isometry and agrees with the twin; the null directions hold
+    # rounding noise that the quintic steps inflate (3.44x a step),
+    # differently on the two sides, so only the range part, P, QP = A and
+    # U^T Q Q^T U = I are compared (tests/test_torch_gauge_env.py on the CPU)
+    B, chi, d, M, rank = 2, 64, 2, 3, 40
+    rng = np.random.default_rng(5)
+    U = np.linalg.qr(rng.standard_normal((B, d * chi, rank)))[0]
+    V = np.linalg.qr(rng.standard_normal((B, chi, rank)))[0]
+    A = np.einsum("Bkr,r,Bcr->Bkc", U, np.linspace(1.0, 0.2, rank), V)
+    E = rng.standard_normal((B, M, chi, chi)) / chi
+    W = rng.standard_normal((M, M, d, d))
+    A, E, W = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+               for a in (A, E, W))
+    U = torch.as_tensor(U, dtype=torch.float64, device=cuda)
+    assert TK.gauge_env_route(chi, d, M, torch.float32) == "resident"
+    TK.reset_launch_counts()
+    Q, P, _ = TK.fused_gauge_env(W, E, A, 14, 7)
+    assert TK.route_counts["fused_gauge_env_resident"] == 1
+    with highest_precision():
+        Qr, Pr, _ = TK.fused_gauge_env_plain(W, E, A, 14, 7)
+    proj = lambda q: U @ (U.mT @ q.double())  # noqa: E731
+    tol = TOL[torch.float32][1]
+    assert _rel(proj(Q), proj(Qr)) < tol
+    assert _rel(P, Pr) < tol
+    assert float((Q @ P - A).norm() / A.norm()) < tol
+    UQ = U.mT @ Q.double()
+    eye = torch.eye(rank, dtype=torch.float64, device=cuda)
+    assert float((UQ @ UQ.mT - eye).abs().max()) < 10 * tol
 
 
 def test_fused_epilogue_sweep_on_the_card_is_variational(cuda):

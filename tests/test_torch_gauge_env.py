@@ -130,6 +130,52 @@ def test_route_rule_is_the_jax_admission():
     assert not TK.gauge_epilogue_admitted(384, 2, 3)
 
 
+def test_gauge_env_route_takes_f64_to_the_grid():
+    for chi in (8, 16, 64, 128, 256):
+        assert TK.gauge_env_route(chi, 2, 3, torch.float64) == "grid"
+
+
+def test_gauge_env_route_keeps_the_sweep_shape_resident():
+    # the batched and single-instance fused sweeps' shape: chi=64, d=2, M=3,
+    # 54,688 bytes, two blocks an SM
+    assert TK.gauge_env_route(64, 2, 3, torch.float32) == "resident"
+    assert TK.gauge_env_resident_bytes(64, 2, 3) == 272 + 4 * (
+        2 * 64 * 72 + 64 * 68 + 36)
+
+
+@pytest.mark.parametrize("d,M", [(2, 3), (3, 3), (4, 2)])
+def test_gauge_env_route_limit_is_the_footprint(d, M):
+    # chi is padded to a multiple of 32; the last resident chi is the last
+    # whose padded panel, G and couplings fit 232,448 bytes, at most 128
+    def fits(chi):
+        cp = -(-chi // 32) * 32
+        nbytes = 272 + 4 * (d * cp * (cp + 8) + cp * (cp + 4) + M * M * d * d)
+        return cp <= 128 and nbytes <= 232_448
+
+    last = max(c for c in range(1, 400) if fits(c))
+    assert last == {2: 128, 3: 96, 4: 96}[d]
+    assert TK.gauge_env_route(last, d, M, torch.float32) == "resident"
+    assert TK.gauge_env_route(last + 1, d, M, torch.float32) == "grid"
+    for chi in (1, 31, 32, 33, 64, last // 2):
+        assert TK.gauge_env_route(chi, d, M, torch.float32) == "resident"
+    assert TK.gauge_env_resident_bytes(last, d, M) <= 232_448
+
+
+def test_gauge_env_route_gives_small_batches_at_large_chi_to_the_grid():
+    # one instance is one SM's work on the resident route: at chi padded to
+    # 96 and 128 the grid route wins below 8 and 64 instances on the card
+    route = lambda chi, B: TK.gauge_env_route(chi, 2, 3, torch.float32, B)
+    assert [route(64, B) for B in (1, 2, 256)] == ["resident"] * 3
+    assert [route(16, 1), route(33, 1)] == ["resident"] * 2
+    assert [route(80, 4), route(96, 4), route(96, 8)] == [
+        "grid", "grid", "resident"]
+    assert [route(128, 32), route(128, 64), route(97, 256)] == [
+        "grid", "resident", "resident"]
+    assert route(129, 256) == "grid"
+    assert TK.gauge_env_route(128, 2, 3, torch.float32) == "resident"
+    assert TK.gauge_env_route(64, 2, 3, torch.float64, 256) == "grid"
+
+
 def test_fused_gauge_env_validates_inputs():
     W = torch.zeros((3, 3, 2, 2))
     E = torch.zeros((2, 3, 4, 4))
@@ -142,6 +188,8 @@ def test_fused_gauge_env_validates_inputs():
         TK.fused_gauge_env(W, E, A.double())
     with pytest.raises(ValueError):
         TK.fused_gauge_env(W, E, A.mT.contiguous().mT)
+    with pytest.raises(ValueError):
+        TK.fused_gauge_env(W, E, A, route="tiled")
 
 
 # The sweep tests use tests/test_torch_dmrg.py's helpers and gates: f64
