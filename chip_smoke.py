@@ -16,7 +16,11 @@ the energies against the converged reference and a small chain against
 exact diagonalisation.  Then the batched MPS transfer chain at bench.py's
 shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
 "resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
-64 f32), and the chained-GEMM probe's 11-shape ladder.
+64 f32), and the chained-GEMM probe's 11-shape ladder (route "wgmma",
+timed beside its WMMA route and a torch.matmul chain).  K1 runs at chi=64
+for B=256 and the plain path's B=1, nt=2 and 4, on the route
+heff_matvec_route picks, timed in turns with the first port's SIMT
+kernel; its row of the kernels line is the path's shape, B=1, nt=2.
 Every phase prints one JSON line; a failed check exits non-zero.  Needs
 one CUDA card and nvcc; without a card it exits 1 before printing any
 result.  The last line is
@@ -106,6 +110,9 @@ CHAIN_TILED_B, CHAIN_TILED_N = 16, 8
 # one bf16 ulp is 2^-8 = 3.9e-3 of the entry, and the later steps carry
 # it.  2e-2 of the largest entry (~5 ulps) still fails a wrong term.
 BF16_RTOL = 2e-2
+# K1 at chi=64: (B, nt) -- the batch at one- and two-site widths, and
+# the single-instance plain path's B=1 (the kernels line takes (BATCH, D)).
+K1_CASES = ((BATCH, D), (BATCH, D * D), (1, D), (1, D * D))
 # The K9 ladder shape whose times stand in the kernels line: P=16
 # independent 128-tile chains, the TPU transfer-chain kernel's tile
 # structure (benchmarks/mxu_micro.py).
@@ -304,27 +311,68 @@ def build_phase():
 
 
 def k1_phase(torch):
+    """K1 at chi=64 for each (B, nt) of K1_CASES on the route
+    heff_matvec_route picks, against its twin (and its repeat launch), the
+    SIMT kernel of the first port (never routed for f32) timed in turns
+    with it on the same operands, with both bounds and the f64 error
+    beside the twin's.  Returns the numbers at the main path's shape
+    (B=1, nt=D: the single-instance plain path's every K1 launch)."""
     from tensornetwork_tpu_torch.config import highest_precision
     from tensornetwork_tpu_torch.ops import kernels as K
-    (L, W, R, x), (Lt, W_, Rt, xt) = hermitian_operands(torch, BATCH, CHI, D,
-                                                        M, seed=1)
-    with highest_precision():
-        y = K.heff_matvec(Lt, W_, Rt, xt)
-        y_plain = K.heff_matvec_plain(Lt, W_, Rt, xt)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(y).all()), "K1 output not finite")
-        rel, err = max_rel(y, y_plain), float((y - y_plain).abs().max())
-        ms = cuda_ms(torch, lambda: K.heff_matvec(Lt, W_, Rt, xt), 20)
-        plain_ms = cuda_ms(torch, lambda: K.heff_matvec_plain(Lt, W_, Rt, xt), 20)
-        lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(L, W, R, x), 20)
-        lib_err = max_rel(K.finalize_output(y), K.heff_matvec_reference(L, W, R, x))
-    bound_ms, bound_by = bound(*matvec_work(BATCH, CHI, D, M))
-    emit(phase="k1_heff_matvec", shape=[BATCH, CHI, D, M], max_rel_err=rel,
-         max_abs_err=err, einsum_rel_err=lib_err, ms=ms, plain_ms=plain_ms,
-         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-    check(rel <= KERNEL_RTOL, f"K1 disagrees with its twin: {rel}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+    cases, ret = [], None
+    for B, nt in K1_CASES:
+        sol, (Lt, W_, Rt, xt) = hermitian_operands(torch, B, CHI, nt, M,
+                                                   seed=1)
+        route = K.heff_matvec_route(CHI, nt, M, B, torch.float32)
+        with highest_precision():
+            K.reset_launch_counts()
+            y = K.heff_matvec(Lt, W_, Rt, xt)
+            counted = {r: K.route_counts["heff_matvec_" + r]
+                       for r in ("tc32", "simt")}
+            y_plain = K.heff_matvec_plain(Lt, W_, Rt, xt)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y).all()), "K1 output not finite")
+            rel, err = max_rel(y, y_plain), float((y - y_plain).abs().max())
+            same = bool(torch.equal(y, K.heff_matvec(Lt, W_, Rt, xt)))
+            calls = {route: lambda: K.heff_matvec(Lt, W_, Rt, xt),
+                     "simt": lambda: K.heff_matvec_simt(Lt, W_, Rt, xt)}
+            turns = {r: [] for r in calls}
+            for r in (route, "simt", "simt", route):
+                turns[r].append(cuda_ms(torch, calls[r], 20))
+            route_ms = {r: sum(t) / len(t) for r, t in turns.items()}
+            plain_ms = cuda_ms(torch, lambda: K.heff_matvec_plain(
+                Lt, W_, Rt, xt), 20)
+            lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(*sol), 20)
+            y_lib = K.heff_matvec_reference(*sol)
+            lib_err = max_rel(K.finalize_output(y), y_lib)
+            errs = f64_errors(torch, sol, y, y_plain, y_lib)
+        flops, nbytes = matvec_work(B, CHI, nt, M)
+        bound_ms, bound_by = bound(flops, nbytes)
+        cases.append(dict(shape=[B, CHI, nt, M], route=route,
+                          route_counts=counted, max_rel_err=rel,
+                          max_abs_err=err, repeat_same_bits=same,
+                          einsum_rel_err=lib_err, f64_rel_err=errs,
+                          ms=route_ms[route], route_ms=route_ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          bound_tc_ms=bound_tc(flops, nbytes)[0]))
+        check(counted[route] == 1 and sum(counted.values()) == 1,
+              f"K1 at B={B} nt={nt} took routes {counted}, expected {route}")
+        check(route == "tc32", f"K1 f32 at B={B} nt={nt} left the tensor cores")
+        check(rel <= KERNEL_RTOL and same,
+              f"K1 (B={B}, nt={nt}) disagrees with its twin: {rel}, repeat "
+              f"same bits {same}")
+        check(errs["kernel"] <= 2 * errs["twin"],
+              f"K1 (B={B}, nt={nt}) f64 error {errs['kernel']} above 2x the "
+              f"twin's {errs['twin']}")
+        if (B, nt) == (1, D):
+            ret = dict(max_abs_err=err, ms=route_ms[route], plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms, k1_route=route,
+                       k1_shape=[B, CHI, nt, M], simt_ms=route_ms["simt"])
+        del sol, Lt, W_, Rt, xt, y, y_plain, y_lib
+    emit(phase="k1_heff_matvec", cases=cases)
+    return ret
 
 
 def k2_phase(torch):
@@ -978,10 +1026,20 @@ def k6_phase(torch):
                 bound_by=bound_by, library_ms=lib_ms), launches
 
 
+def matmul_chain(torch, x, b, c, reps):
+    """The chained products as 2 reps bf16 torch.matmul calls over the (P,
+    M, K) batch (cuBLAS, f32 accumulation, bf16 out): K9's yardstick."""
+    for _ in range(reps):
+        x = torch.matmul(torch.matmul(x, b), c)
+    return x
+
+
 def k9_phase(torch):
     """K9, the chained-GEMM probe: every ladder shape of
-    benchmarks/mxu_micro.py against its twin at reps=2, then timed at its
-    own reps.  The probe's entry point over the ladder is the path: the
+    benchmarks/mxu_micro.py against its twin at reps=2 (and its repeat
+    launch), then timed at its own reps on the route gemm_chain_route
+    picks, beside the WMMA route and the torch.matmul chain on the same
+    operands.  The probe's entry point over the ladder is the path: the
     counts are set to 0 just before and read just after."""
     from tensornetwork_tpu_torch.benchmarks import mxu_micro as mx
     from tensornetwork_tpu_torch.ops import kernels as K
@@ -995,32 +1053,51 @@ def k9_phase(torch):
         sums.append(float(mx.make_chain_kernel(M_, K_, N_, reps, P_)(
             *inputs[shape])))
     launches = K.launch_counts["gemm_chain"]
-    check(launches == len(mx.LADDER),
-          f"K9 launches over the ladder {launches}, expected {len(mx.LADDER)}")
+    routes = {r: K.route_counts["gemm_chain_" + r] for r in ("wgmma", "wmma")}
+    check(launches == len(mx.LADDER) and routes["wgmma"] == launches,
+          f"K9 launches over the ladder {launches} (routes {routes}), "
+          f"expected {len(mx.LADDER)} on the wgmma route")
     for shape, total in zip(mx.LADDER, sums):
         M_, K_, N_, P_, reps = shape
         x, b, c = inputs[shape]
+        route = K.gemm_chain_route(M_, K_, N_, P_)
         out = K.gemm_chain(x, b, c, 2)
         ref = K.gemm_chain_plain(x, b, c, 2)
         torch.cuda.synchronize()
         rel = max_rel(out.float(), ref.float())
         err = float((out.float() - ref.float()).abs().max())
+        same = bool(torch.equal(out, K.gemm_chain(x, b, c, 2)))
+        wmma_rel = max_rel(K.gemm_chain(x, b, c, 2, route="wmma").float(),
+                           ref.float())
         ms = cuda_ms(torch, lambda: K.gemm_chain(x, b, c, reps), 3)
+        wmma_ms = cuda_ms(torch, lambda: K.gemm_chain(x, b, c, reps,
+                                                      route="wmma"), 3)
+        chain_ms = cuda_ms(torch, lambda: matmul_chain(torch, x, b, c, reps),
+                           3)
         flops = mx.chain_flops(M_, K_, N_, P_, reps)
-        row = dict(shape=list(shape), rel_err=rel, max_abs_err=err, ms=ms,
-                   tflops_per_s=flops / ms / 1e9, sum_abs=total)
+        plan = K.gemm_chain_plan(M_, K_, N_)
+        row = dict(shape=list(shape), route=route, plan=plan._asdict(),
+                   rel_err=rel, max_abs_err=err, repeat_same_bits=same,
+                   wmma_rel_err=wmma_rel, ms=ms,
+                   tflops_per_s=flops / ms / 1e9, other_route_ms=wmma_ms,
+                   chain_ms=chain_ms, sum_abs=total)
         ladder.append(row)
-        check(rel <= BF16_RTOL and np.isfinite(total),
-              f"K9 {shape} disagrees with its twin: {rel} (sum {total})")
+        check(route == "wgmma", f"K9 {shape} routed to {route}")
+        check(rel <= BF16_RTOL and wmma_rel <= BF16_RTOL and same
+              and np.isfinite(total),
+              f"K9 {shape} disagrees with its twin: {rel} (WMMA {wmma_rel}, "
+              f"repeat same bits {same}, sum {total})")
         if shape == K9_SHAPE:
             plain_ms = cuda_ms(torch, lambda: K.gemm_chain_plain(x, b, c,
                                                                  reps), 1)
             nbytes = 2 * (2 * P_ * M_ * K_ + 2 * K_ * N_)
             bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
             ret = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    emit(phase="k9_gemm_chain", launches=launches, ladder=ladder,
-         shape_in_kernels_line=list(K9_SHAPE))
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=chain_ms)
+    emit(phase="k9_gemm_chain", launches=launches, route_counts=routes,
+         ladder=ladder, shape_in_kernels_line=list(K9_SHAPE),
+         library_ms_is="chain: 2 reps bf16 torch.matmul calls")
     return ret, launches
 
 
@@ -1070,12 +1147,9 @@ def single_phase(torch):
              sweeps=sweeps, delta_E=de,
              ritz_delta_E_per_sweep=[x - REFERENCE_ENERGY for x in energies],
              sweeps_per_s=rate, first_sweep_s=times[0], **traced)
-        if lanczos_impl == "fused":
-            check(DE_LO <= de <= DE_HI,
-                  f"single instance ({qr_impl}, {epilogue_impl} epilogue) "
-                  f"delta E {de} outside window")
-        else:
-            check(de >= DE_LO, f"plain route non-variational: {de}")
+        check(DE_LO <= de <= DE_HI,
+              f"single instance ({qr_impl}, {lanczos_impl} Lanczos, "
+              f"{epilogue_impl} epilogue) delta E {de} outside window")
 
 
 def device_busy_ms(torch, fn, top=0):
@@ -1445,6 +1519,9 @@ def main():
     check(launches["fused_lanczos"] > 0 and launches["heff_matvec"] > 0
           and launches["fused_gauge_env"] > 0,
           f"a kernel of the main path never launched: {launches}")
+    check(routes["heff_matvec_simt"] == 0
+          and routes["heff_matvec_tc32"] == launches["heff_matvec"],
+          f"K1 on the chi={CHI} path left the tensor cores: {routes}")
     check_k5_resident(launches, routes)
 
     states = {"xla": (As, renvs)}

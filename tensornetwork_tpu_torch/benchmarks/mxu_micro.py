@@ -4,8 +4,9 @@
 The TPU's probe chains GEMMs of one shape inside one Pallas program, with
 the operands resident, to measure the issue rate of its matrix unit (the
 MXU) per matmul shape.  The H100 has no MXU: on Hopper the same ladder
-probes the issue rate and latency of dependent bf16 tensor-core GEMMs,
-through the hand-written kernel ``csrc/gemm_chain.cu``
+probes the issue rate and latency of dependent bf16 tensor-core GEMMs
+(``wgmma``, its operands brought in by TMA), through the hand-written
+kernel ``csrc/gemm_chain.cu``
 (:func:`tensornetwork_tpu_torch.ops.kernels.gemm_chain`, one launch per
 call).  P=1 measures the latency of one dependent GEMM, larger P the
 issue rate with P independent chains in flight.

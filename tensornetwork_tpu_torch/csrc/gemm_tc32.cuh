@@ -1,9 +1,11 @@
 // The f32 GEMM core of the large-chi streamed matvecs (streamed_matvec.cu,
 // streamed_matvec_xl.cu), of the resident Lanczos kernel
 // (fused_lanczos.cu, whose matvec streams 64 x 64 tiles through
-// gemm_stream inside one block per instance) and of the grid-wide Lanczos
+// gemm_stream inside one block per instance), of the grid-wide Lanczos
 // kernels (lanczos_grid.cuh, the same streams spread over every block of
-// the card, with the fold in place): fp32-accurate products on
+// the card, with the fold in place), and of the batched matvec
+// (heff_matvec.cu: the streamed matvec's stages with FINE sums):
+// fp32-accurate products on
 // the tensor cores by 3xTF32, and the streamed matvec built from it as two
 // large GEMMs and a coupling fold.
 //
@@ -300,12 +302,13 @@ __device__ void gemm_stream(int njobs, int nk, Load load, Epi epi,
 }
 
 // acc += A[0:rows, 0:K] @ B[0:K, 0:cols] over this block's BM x BN tile
-// (A and B point at the tile's first row / column).  Ends with every
-// copy landed and a __syncthreads(), so the caller may reuse `smem`.
-// gemm_stream's loop for one job, kept apart: run through gemm_stream,
-// K7/K8's stage 2 took 3% longer on an H100 80GB HBM3 at 700 W
-// (benchmarks/sweep_kernels.py, in turns with the loop below).
-template <int BM, int BN>
+// (A and B point at the tile's first row / column), stage sums as
+// stage_mma<FINE>.  Ends with every copy landed and a __syncthreads(), so
+// the caller may reuse `smem`.  gemm_stream's loop for one job, kept
+// apart: run through gemm_stream, K7/K8's stage 2 took 3% longer on an
+// H100 80GB HBM3 at 700 W (benchmarks/sweep_kernels.py, in turns with the
+// loop below).
+template <int BM, int BN, bool FINE = false>
 __device__ void gemm_tile(float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
                           const float* A, int lda, const float* B, int ldb,
                           int K, int rows, int cols, bool vec, float* smem) {
@@ -332,8 +335,8 @@ __device__ void gemm_tile(float (&acc)[Tile<BM, BN>::MT][Tile<BM, BN>::NT][4],
                          rows, cols, K - nxt * BK, vec);
     }
     cp_commit();
-    stage_mma<BM, BN>(acc, As + (kt % STAGES) * T::A_STAGE,
-                      Bs + (kt % STAGES) * T::B_STAGE);
+    stage_mma<BM, BN, FINE>(acc, As + (kt % STAGES) * T::A_STAGE,
+                            Bs + (kt % STAGES) * T::B_STAGE);
   }
   cp_wait<0>();
   __syncthreads();
@@ -427,7 +430,7 @@ constexpr int min_blocks() {
   return BM * BN >= 128 * 128 ? 1 : 2;
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool FINE = false>
 __global__ void __launch_bounds__(THREADS, min_blocks<BM, BN>())
     stage1_kernel(const float* __restrict__ Lt, const float* __restrict__ x,
                   float* __restrict__ P, int chi, int nt, int M, int K3,
@@ -443,7 +446,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<BM, BN>())
   const int ac = chi / K3, a0 = k3 * ac;  // this block's contraction chunk
   const int rows = M * chi - r0, cols = chi - c0;
   float acc[T::MT][T::NT][4] = {};
-  gemm_tile<BM, BN>(acc, Lt + b * M * plane + (size_t)r0 * chi + a0, chi,
+  gemm_tile<BM, BN, FINE>(acc, Lt + b * M * plane + (size_t)r0 * chi + a0, chi,
                     x + (b * nt + t) * plane + (size_t)a0 * chi + c0, chi, ac,
                     rows, cols, vec != 0, (float*)smem4);
   const size_t ldp = (size_t)nt * chi;
@@ -518,9 +521,9 @@ __global__ void __launch_bounds__(FOLD_THREADS)
 }
 
 // Stage 2: one block per (s, output tile) in blockIdx.x and instance in
-// blockIdx.y; part[b][blockIdx.x] = the tile's <x, y>, summed in a fixed
-// order.
-template <int BM, int BN>
+// blockIdx.y; with DOT, part[b][blockIdx.x] = the tile's <x, y>, summed
+// in a fixed order (without, x and part are not read).
+template <int BM, int BN, bool FINE = false, bool DOT = true>
 __global__ void __launch_bounds__(THREADS, min_blocks<BM, BN>())
     stage2_kernel(const float* __restrict__ Q, const float* __restrict__ Rt,
                   const float* __restrict__ x, float* __restrict__ y,
@@ -536,17 +539,18 @@ __global__ void __launch_bounds__(THREADS, min_blocks<BM, BN>())
   const int ldq = M * chi;
   const int rows = chi - r0, cols = chi - c0;
   float acc[T::MT][T::NT][4] = {};
-  gemm_tile<BM, BN>(acc, Q + ((b * nt + s) * chi + r0) * (size_t)ldq, ldq,
-                    Rt + b * M * plane + c0, chi, ldq, rows, cols, vec != 0,
-                    smem);
+  gemm_tile<BM, BN, FINE>(acc, Q + ((b * nt + s) * chi + r0) * (size_t)ldq,
+                          ldq, Rt + b * M * plane + c0, chi, ldq, rows, cols,
+                          vec != 0, smem);
   const size_t off = (b * nt + s) * plane + (size_t)r0 * chi + c0;
   float dot = 0.f;
   for_each_acc<BM, BN>(acc, [&](int r, int c, float v) {
     if (r < rows && c < cols) {
       y[off + (size_t)r * chi + c] = v;
-      dot += x[off + (size_t)r * chi + c] * v;
+      if constexpr (DOT) dot += x[off + (size_t)r * chi + c] * v;
     }
   });
+  if constexpr (!DOT) return;
   dot = heff::warp_sum(dot);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   if (lane == 0) smem[warp] = dot;  // the ring is free (gemm_tile's sync)
@@ -558,37 +562,56 @@ __global__ void __launch_bounds__(THREADS, min_blocks<BM, BN>())
   }
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool FINE = false>
 cudaError_t launch_stage1(const float* Lt, const float* x, float* P, int B,
                           int chi, int nt, int M, int K3, bool vec,
                           cudaStream_t stream) {
   using T = Tile<BM, BN>;
+  auto kern = stage1_kernel<BM, BN, FINE>;
   cudaError_t err = cudaFuncSetAttribute(
-      stage1_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const int blocks = ((M * chi + BM - 1) / BM) * nt * ((chi + BN - 1) / BN);
-  stage1_kernel<BM, BN><<<dim3(blocks, B * K3), THREADS, T::SMEM, stream>>>(
-      Lt, x, P, chi, nt, M, K3, vec);
+  kern<<<dim3(blocks, B * K3), THREADS, T::SMEM, stream>>>(Lt, x, P, chi, nt,
+                                                           M, K3, vec);
   return cudaGetLastError();
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool FINE = false, bool DOT = true>
 cudaError_t launch_stage2(const float* Q, const float* Rt, const float* x,
                           float* y, float* part, int B, int chi, int nt,
                           int M, bool vec, cudaStream_t stream) {
   using T = Tile<BM, BN>;
+  auto kern = stage2_kernel<BM, BN, FINE, DOT>;
   cudaError_t err = cudaFuncSetAttribute(
-      stage2_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const int blocks = nt * ((chi + BM - 1) / BM) * ((chi + BN - 1) / BN);
-  stage2_kernel<BM, BN><<<dim3(blocks, B), THREADS, T::SMEM, stream>>>(
-      Q, Rt, x, y, part, chi, nt, M, vec);
+  kern<<<dim3(blocks, B), THREADS, T::SMEM, stream>>>(Q, Rt, x, y, part, chi,
+                                                      nt, M, vec);
   return cudaGetLastError();
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// The fold pass: one thread per (c, b) of each instance; M=3 with nt=2
+// or 4 at compile time.
+inline cudaError_t launch_fold(const float* C, long long c_stride,
+                               const float* P, float* Q, int B, int chi,
+                               int nt, int M, int K3, cudaStream_t stream) {
+  const size_t plane = (size_t)chi * chi;
+  const dim3 fgrid((unsigned)((plane + FOLD_THREADS - 1) / FOLD_THREADS), B);
+  if (M == 3 && nt == 2)
+    fold_kernel<3, 2><<<fgrid, FOLD_THREADS, 0, stream>>>(C, c_stride, P, Q,
+                                                          chi, nt, M, K3);
+  else if (M == 3 && nt == 4)
+    fold_kernel<3, 4><<<fgrid, FOLD_THREADS, 0, stream>>>(C, c_stride, P, Q,
+                                                          chi, nt, M, K3);
+  else
+    fold_kernel<0, 0><<<fgrid, FOLD_THREADS, 0, stream>>>(C, c_stride, P, Q,
+                                                          chi, nt, M, K3);
+  return cudaGetLastError();
+}
 
 // The whole f32 matvec: stage 1, the fold, stage 2 and the ordered sum of
 // the <x, y> slots, on `stream`.  Scratch P: B*K3*M*nt*chi^2 words, Q:
@@ -618,18 +641,7 @@ inline int launch_matvec(const float* C, long long c_stride, const float* Lt,
       err = launch_stage1<64, 64>(Lt, x, P, B, chi, nt, M, K3, vec1, stream);
   }
   if (err != cudaSuccess) return (int)err;
-  const size_t plane = (size_t)chi * chi;
-  const dim3 fgrid((unsigned)((plane + FOLD_THREADS - 1) / FOLD_THREADS), B);
-  if (M == 3 && nt == 2)
-    fold_kernel<3, 2><<<fgrid, FOLD_THREADS, 0, stream>>>(C, c_stride, P, Q,
-                                                          chi, nt, M, K3);
-  else if (M == 3 && nt == 4)
-    fold_kernel<3, 4><<<fgrid, FOLD_THREADS, 0, stream>>>(C, c_stride, P, Q,
-                                                          chi, nt, M, K3);
-  else
-    fold_kernel<0, 0><<<fgrid, FOLD_THREADS, 0, stream>>>(C, c_stride, P, Q,
-                                                          chi, nt, M, K3);
-  err = cudaGetLastError();
+  err = launch_fold(C, c_stride, P, Q, B, chi, nt, M, K3, stream);
   if (err != cudaSuccess) return (int)err;
   int bm, bn;
   switch (tile2) {

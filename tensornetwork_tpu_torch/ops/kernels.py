@@ -43,8 +43,9 @@ tier's :func:`fused_lanczos`, with the same GEMMs as tile streams inside
 one block per instance, and the two-pass and streamed tiers' grid-wide
 matvecs (K3, K4: the tile jobs spread over every block of the card,
 stage 2 split over the MPO bond, :func:`lgrid_plan`), and K5's resident
-route (the panel in one block's shared memory for all its polar steps);
-K1, K5's grid route, and every f64 instance, are fp32/fp64 SIMT.
+route (the panel in one block's shared memory for all its polar steps),
+and K1 in f32 (:func:`heff_matvec_route`: K7's three launches without
+<x, y>); K5's grid route, and every f64 instance, are fp32/fp64 SIMT.
 
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 (:func:`fused_lanczos_ground_state_2s`).
@@ -65,7 +66,10 @@ Beside the local solve:
   GEMM launches per site.
 * :func:`gemm_chain` -- chained bf16 GEMMs, the kernel of the issue-rate
   probe :mod:`tensornetwork_tpu_torch.benchmarks.mxu_micro` (replaces
-  ``benchmarks/mxu_micro.py``'s ``make_chain_kernel``).
+  ``benchmarks/mxu_micro.py``'s ``make_chain_kernel``): ``wgmma`` with its
+  operands brought in by TMA and mbarriers, one block per 64-row panel
+  (:func:`gemm_chain_plan`), or WMMA for the shapes that plan does not
+  take (:func:`gemm_chain_route`).
 
 Each wrapper runs its plain-PyTorch twin (same algorithm) when handed CPU
 tensors, and launches its kernel, or raises, when handed CUDA tensors.
@@ -90,12 +94,17 @@ launch_counts: Dict[str, int] = {
     "fused_lanczos_replay": 0, "fused_lanczos_streamed": 0,
     "streamed_matvec": 0, "streamed_matvec_xl": 0, "fused_gauge_env": 0,
     "transfer_chain": 0, "gemm_chain": 0}
-# the route of each kernel launch of transfer_chain (transfer_chain_route)
-# and of fused_gauge_env (gauge_env_route)
-route_counts: Dict[str, int] = {"transfer_chain_resident": 0,
+# the route of each kernel launch of transfer_chain (transfer_chain_route),
+# fused_gauge_env (gauge_env_route), gemm_chain (gemm_chain_route) and
+# heff_matvec (heff_matvec_route)
+route_counts: Dict[str, int] = {"heff_matvec_tc32": 0,
+                                "heff_matvec_simt": 0,
+                                "transfer_chain_resident": 0,
                                 "transfer_chain_tiled": 0,
                                 "fused_gauge_env_resident": 0,
-                                "fused_gauge_env_grid": 0}
+                                "fused_gauge_env_grid": 0,
+                                "gemm_chain_wgmma": 0,
+                                "gemm_chain_wmma": 0}
 # blocks of the last launch of each grid-wide (cooperative) kernel
 last_grid: Dict[str, int] = {}
 
@@ -108,7 +117,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _ARGTYPES = {
-    "tn_heff_matvec": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tn_heff_matvec": [_P, _L] + [_P] * 6 + [_I] * 5 + [_P],
     "tn_fused_lanczos": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _D, _P],
     "tn_fused_lanczos_streamed": [_P, _L] + [_P] * 10 + [_I] * 7
@@ -122,7 +131,7 @@ _ARGTYPES = {
                               _I, _I, _I, _I, _I, _I, _I, _P],
     "tn_fused_gauge_env": [_P] * 11 + [_I] * 7 + [_P, _P],
     "tn_transfer_chain": [_P] * 6 + [_I] * 5 + [_P],
-    "tn_gemm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tn_gemm_chain": [_P, _P, _P, _P] + [_I] * 8 + [_P],
 }
 _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
             "tn_fused_lanczos": "fused_lanczos.cu",
@@ -241,18 +250,56 @@ def heff_matvec_plain(Lt, W, Rt, xt):
     return torch.matmul(Q, Rt[:, :, None]).sum(1)            # (B, s, c, d)
 
 
+_HEFF_ROUTES = ("simt", "tc32")
+
+
+def heff_matvec_route(chi: int, nt: int, M: int, B: int,
+                      dtype: torch.dtype) -> str:
+    """The kernel route of :func:`heff_matvec` for CUDA tensors: f64 ->
+    ``"simt"`` (heff.cuh's fp64 tile GEMM, unchanged); f32 -> ``"tc32"``
+    (the 3xTF32 tensor-core core in three launches, 64 x 64 tiles spread
+    over the card) at every shape.  ``benchmarks/k1_routes.py`` (device
+    time by torch.profiler, H100 80GB HBM3 at 700 W, M=3) found it faster
+    than the f32 SIMT kernel at all 32 points of B 1/8/64/256, chi
+    32/64/128/256, nt 2/4."""
+    del chi, nt, M, B  # one route a dtype
+    return "tc32" if dtype == torch.float32 else "simt"
+
+
 def heff_matvec(Lt, W, Rt, xt):
-    """Batched one-site H_eff matvec on kernel-layout operands; returns
-    y (B, d, chi, chi).  Counterpart of ``make_heff_matvec``."""
+    """Batched H_eff matvec on kernel-layout operands with any number of
+    physical tiles (d one-site; d*d two-site with W the fused couplings);
+    returns y (B, d, chi, chi).  Counterpart of ``make_heff_matvec``.  CUDA
+    tensors take the route :func:`heff_matvec_route` picks: f32 on the
+    3xTF32 tensor-core core, f64 on the SIMT core."""
+    return _heff_launch(Lt, W, Rt, xt, None)
+
+
+def heff_matvec_simt(Lt, W, Rt, xt):
+    """The first port's SIMT kernel of :func:`heff_matvec`, in either
+    dtype.  No path takes it for f32 (:func:`heff_matvec_route` never
+    does): it is the yardstick that ``chip_smoke.py`` and
+    ``benchmarks/k1_routes.py`` time the 3xTF32 route against."""
+    return _heff_launch(Lt, W, Rt, xt, "simt")
+
+
+def _heff_launch(Lt, W, Rt, xt, route):
+    """K1 on ``route``, or the route :func:`heff_matvec_route` picks for
+    None; the twin for CPU tensors."""
     B, chi, d, M, w_stride = _validate(Lt, W, Rt, xt)
     if xt.device.type == "cpu":
         return heff_matvec_plain(Lt, W, Rt, xt)
+    if route is None:
+        route = heff_matvec_route(chi, d, M, B, xt.dtype)
     P = torch.empty((B, M * d, chi, chi), dtype=xt.dtype, device=xt.device)
+    Q = torch.empty_like(P) if route == "tc32" else None
     y = torch.empty_like(xt)
     _launch("tn_heff_matvec", xt.dtype, xt.device,
             W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
-            xt.data_ptr(), P.data_ptr(), y.data_ptr(), B, chi, d, M)
+            xt.data_ptr(), P.data_ptr(), _ptr(Q), y.data_ptr(), B, chi, d, M,
+            _HEFF_ROUTES.index(route))
     launch_counts["heff_matvec"] += 1
+    route_counts["heff_matvec_" + route] += 1
     return y
 
 
@@ -1346,11 +1393,72 @@ def gemm_chain_plain(x, b, c, reps: int):
     return x
 
 
-def gemm_chain(x, b, c, reps: int):
+# the wgmma route (csrc/gemm_chain.cu, namespace wg): a 128-byte swizzle
+# span of 64 bf16 columns, at most 4 ring stages, the barriers and the
+# alignment slack of its dynamic shared memory
+_WG_SPAN, _WG_MAX_STAGES = 64, 4
+_WG_FIXED_BYTES = 1024 + 8 * (1 + 2 * _WG_MAX_STAGES)
+
+
+class ChainPlan(NamedTuple):
+    """The wgmma route's plan of one (M, K, N): b and c ``"resident"`` or
+    ``"streamed"`` through a ring of ``stages`` slabs ``kd`` rows deep;
+    the output chunk (one wgmma's N) of each product, ``nc1`` of x @ b
+    (N wide) and ``nc2`` of y @ c (K wide); the block's dynamic shared
+    memory."""
+    mode: str
+    kd: int
+    stages: int
+    nc1: int
+    nc2: int
+    smem_bytes: int
+
+
+def _chain_chunk(width: int) -> int:
+    return 256 if width % 256 == 0 else 128 if width % 128 == 0 else 64
+
+
+def gemm_chain_plan(M: int, K: int, N: int) -> Optional[ChainPlan]:
+    """The wgmma route's plan, the one place that picks its slab depth and
+    ring stages (``csrc/gemm_chain.cu`` lays them out, ``wg::smem_bytes``),
+    or None where the route does not take the shape (M % 32, K % 64 or N %
+    64 not 0, or no plan fits 232,448 bytes).  The panels x (64 x K) and y
+    (64 x N) take 128 (K + N) bytes; b and c stay resident (4 K N bytes,
+    64-deep slabs) where they fit beside them, else stream through the
+    deepest ring of 64-deep slabs, then of 32-deep, that holds at least 2
+    stages (at most 4) of the wider chunk's slab."""
+    if M % 32 or K % _WG_SPAN or N % _WG_SPAN:
+        return None
+    nc1, nc2 = _chain_chunk(N), _chain_chunk(K)
+    fixed = _WG_FIXED_BYTES + 128 * (K + N)
+    if fixed + 4 * K * N <= _SMEM_BYTES:
+        return ChainPlan("resident", 64, 0, nc1, nc2, fixed + 4 * K * N)
+    for kd in (64, 32):
+        slot = 2 * kd * max(nc1, nc2)
+        stages = min(_WG_MAX_STAGES, (_SMEM_BYTES - fixed) // slot)
+        if stages >= 2:
+            return ChainPlan("streamed", kd, stages, nc1, nc2,
+                             fixed + stages * slot)
+    return None
+
+
+def gemm_chain_route(M: int, K: int, N: int, P: int) -> str:
+    """The kernel route of :func:`gemm_chain` for CUDA tensors: ``"wgmma"``
+    (TMA + mbarrier + ``wgmma``, one block per 64-row panel) wherever
+    :func:`gemm_chain_plan` has a plan -- every shape of the probe's
+    ladder -- else ``"wmma"`` (the shapes the wrapper admits with K or N
+    not a multiple of 64, or panels too wide for the plan)."""
+    del P  # the same route for any number of chains
+    return "wgmma" if gemm_chain_plan(M, K, N) is not None else "wmma"
+
+
+def gemm_chain(x, b, c, reps: int, route: Optional[str] = None):
     """P independent chains ``y = bf16(x @ b); x = bf16(y @ c)``, ``reps``
     times, on x (P, M, K), b (K, N), c (N, K), bfloat16, float32
     accumulation; returns the last x (P, M, K).  The kernel takes M % 32 ==
-    0 and K, N % 16 == 0.  Counterpart of the Pallas program of the repo's
+    0 and K, N % 16 == 0, on the route :func:`gemm_chain_route` picks or
+    ``route`` ("wgmma" or "wmma", to time one against the other).
+    Counterpart of the Pallas program of the repo's
     ``benchmarks/mxu_micro.py`` ``make_chain_kernel`` (which sums |x| after
     it; :mod:`tensornetwork_tpu_torch.benchmarks.mxu_micro` does the
     same)."""
@@ -1368,16 +1476,28 @@ def gemm_chain(x, b, c, reps: int):
         raise ValueError("x, b, c must lie on one device")
     if reps < 0:
         raise ValueError("reps must be >= 0")
+    if route not in (None, "wgmma", "wmma"):
+        raise ValueError(f"unknown route {route!r}")
     if x.device.type == "cpu":
         return gemm_chain_plain(x, b, c, reps)
     if M % 32 or K % 16 or N % 16:
         raise ValueError(f"the kernel takes M % 32 == 0 and K, N % 16 == 0; "
                          f"got M={M}, K={K}, N={N}")
-    if 64 * (K + N) + 8192 > _SMEM_BYTES:
+    if route is None:
+        route = gemm_chain_route(M, K, N, P)
+    plan = gemm_chain_plan(M, K, N)
+    if route == "wgmma" and plan is None:
+        raise ValueError(f"the wgmma route does not take M={M}, K={K}, N={N}")
+    if route == "wmma" and 64 * (K + N) + 8192 > _SMEM_BYTES:
         raise ValueError(f"K + N = {K + N} exceeds the kernel's shared memory")
+    # contiguous, 16-byte aligned starts: the TMA maps, the 16-byte copies
     x, b, c = (t.contiguous() for t in ts)
+    x, b, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, b, c))
     out = torch.empty_like(x)
+    kd, stages = (plan.kd, plan.stages) if route == "wgmma" else (0, 0)
     _launch("tn_gemm_chain", torch.bfloat16, x.device, x.data_ptr(),
-            b.data_ptr(), c.data_ptr(), out.data_ptr(), P, M, K, N, reps)
+            b.data_ptr(), c.data_ptr(), out.data_ptr(), P, M, K, N, reps,
+            int(route == "wmma"), kd, stages)
     launch_counts["gemm_chain"] += 1
+    route_counts["gemm_chain_" + route] += 1
     return out

@@ -59,6 +59,65 @@ def test_heff_matvec_kernel_matches_twin(cuda, dtype, chi):
     assert _rel(y, ref) < TOL[dtype][0]
 
 
+def _per_instance(W, B, seed):
+    """(B, M, M, nt, nt) Hermitian couplings, one set per instance."""
+    rng = np.random.default_rng(seed)
+    Wb = rng.standard_normal((B,) + tuple(W.shape))
+    Wb = (Wb + Wb.transpose(0, 2, 1, 4, 3)) / 2
+    return torch.as_tensor(Wb, dtype=W.dtype, device=W.device)
+
+
+@pytest.mark.parametrize("route", ["tc32", "simt"])
+@pytest.mark.parametrize("B", [1, 3, 256])
+@pytest.mark.parametrize("chi", [16, 64, 100])
+@pytest.mark.parametrize("nt", [2, 4])
+@pytest.mark.parametrize("per_instance", [False, True])
+def test_heff_matvec_f32_routes_match_twin(cuda, route, B, chi, nt,
+                                           per_instance):
+    # "tc32", the route of every f32 call: the twin's products summed in
+    # other orders on the 3xTF32 core; "simt", the first port's kernel,
+    # kept as its yardstick
+    fn = TK.heff_matvec if route == "tc32" else TK.heff_matvec_simt
+    Lt, W, Rt, xt = _operands(B, chi, nt, 3, torch.float32, cuda,
+                              seed=B + chi + nt)
+    if per_instance:
+        W = _per_instance(W, B, seed=chi)
+    TK.reset_launch_counts()
+    y = fn(Lt, W, Rt, xt)
+    assert TK.launch_counts["heff_matvec"] == 1
+    assert TK.route_counts["heff_matvec_" + route] == 1
+    with highest_precision():
+        ref = TK.heff_matvec_plain(Lt, W, Rt, xt)
+    assert _rel(y, ref) < TOL[torch.float32][0]
+    # no float atomics: a second launch gives the same bits
+    assert torch.equal(y, fn(Lt, W, Rt, xt))
+
+
+@pytest.mark.parametrize("B,nt", [(1, 2), (1, 4), (256, 2), (256, 4)])
+def test_heff_matvec_f32_error_against_f64(cuda, B, nt):
+    # on the route the router picks, y against an f64 run of the twin on
+    # the same f32 operands within 2x the f32 twin's error (cuBLAS SGEMM)
+    Lt, W, Rt, xt = _operands(B, 64, nt, 3, torch.float32, cuda, seed=nt)
+    y = TK.heff_matvec(Lt, W, Rt, xt)
+    with highest_precision():
+        y0 = TK.heff_matvec_plain(Lt, W, Rt, xt)
+    y64 = TK.heff_matvec_plain(*(t.double() for t in (Lt, W, Rt, xt)))
+
+    def err(a):
+        return float((a.double() - y64).norm() / y64.norm())
+
+    assert err(y) <= 2 * err(y0), (err(y), err(y0))
+
+
+def test_heff_matvec_f64_takes_the_simt_route(cuda):
+    Lt, W, Rt, xt = _operands(3, 40, 2, 3, torch.float64, cuda)
+    TK.reset_launch_counts()
+    y = TK.heff_matvec(Lt, W, Rt, xt)
+    assert TK.route_counts["heff_matvec_simt"] == 1
+    assert _rel(y, TK.heff_matvec_plain(Lt, W, Rt, xt)) < TOL[torch.float64][0]
+    assert torch.equal(y, TK.heff_matvec_simt(Lt, W, Rt, xt))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("chi", [16, 64, 80])
 def test_fused_lanczos_kernel_matches_twin(cuda, dtype, chi):
@@ -627,3 +686,29 @@ def test_gemm_chain_kernel_matches_twin(cuda, M, K, N, P, reps):
     ref = TK.gemm_chain_plain(x, b, c, reps)
     # bf16 between the steps, as for the transfer chain
     assert _rel(out.float(), ref.float()) < 2e-2
+
+
+def _ladder_and_ragged():
+    from tensornetwork_tpu_torch.benchmarks import mxu_micro
+    # the probe's ladder at reps=2, and panels of 32 rows past a multiple
+    # of 64 (M=32, M=96), which the wgmma route zero-fills and clips
+    return [s[:4] + (2,) for s in mxu_micro.LADDER] + [(32, 128, 128, 2, 2),
+                                                       (96, 128, 256, 3, 2)]
+
+
+@pytest.mark.parametrize("M,K,N,P,reps", _ladder_and_ragged())
+def test_gemm_chain_wgmma_route_matches_twin(cuda, M, K, N, P, reps):
+    from tensornetwork_tpu_torch.benchmarks import mxu_micro
+    assert TK.gemm_chain_route(M, K, N, P) == "wgmma"
+    x, b, c = mxu_micro.chain_inputs(M, K, N, P, device=cuda)
+    TK.reset_launch_counts()
+    out = TK.gemm_chain(x, b, c, reps)
+    assert TK.route_counts["gemm_chain_wgmma"] == 1
+    ref = TK.gemm_chain_plain(x, b, c, reps)
+    # bf16 between the steps, as for the transfer chain
+    assert _rel(out.float(), ref.float()) < 2e-2
+    assert torch.equal(out, TK.gemm_chain(x, b, c, reps))
+    # the WMMA route, kept as the yardstick, on the same operands
+    wmma = TK.gemm_chain(x, b, c, reps, route="wmma")
+    assert TK.route_counts["gemm_chain_wmma"] == 1
+    assert _rel(wmma.float(), ref.float()) < 2e-2
