@@ -13,7 +13,12 @@ streamed-matvec and XL streamed-matvec tiers); two-site (m=6, subspace
 truncation) on a batch of 256 at chi=64 (resident tier, nt=4) and single
 instance at chi=512 and 1024 (streamed-matvec and XL tiers) -- and checks
 the energies against the converged reference and a small chain against
-exact diagonalisation.  Then the batched MPS transfer chain at bench.py's
+exact diagonalisation.  TDVP: K2 at the three shapes TDVP gives it
+(the realified site and bond steps of the quench, the real bond step of
+imaginary time); bench.py's batched real-time quench (B=64 chains at
+chi=64, complex64, dt=0.05; K2 on realified operands, 4N launches a
+sweep); N=10 against scipy's expm of the dense Hamiltonian; and
+imaginary time at chi=64.  Then the batched MPS transfer chain at bench.py's
 shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
 "resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
 64 f32), and the chained-GEMM probe's 11-shape ladder (route "wgmma",
@@ -119,6 +124,36 @@ K1_CASES = ((BATCH, D), (BATCH, D * D), (1, D), (1, D * D))
 K9_SHAPE = (128, 128, 128, 16, 60)
 # kernels listed per traced sweep (device time by kernel)
 DEVICE_TOP = 8
+# Batched real-time TDVP, bench.py:175-201: B=64 quenches of the chi=64 TFI
+# chain from random real states, dt=0.05, m=10, complex64 on the _sc path
+# (K2 on the realified operands: site nt'=4, bond nt'=2, M'=6); 2 warm
+# sweeps, then 5 timed.  Every site and bond step is one K2 launch: 4N.
+TDVP_B, TDVP_DT, TDVP_WARM, TDVP_TIMED = 64, 0.05, 2, 5
+TDVP_PER_SWEEP = 4 * N
+# One-site TDVP conserves <H> up to the Krylov error: the largest drift
+# accepted over the timed sweeps, per site (a random state's E0 sits near
+# 0, so not relative to it); the norm's; the overlap of instances 0-3 with
+# the plain complex128 path after the timed sweeps.
+TDVP_DRIFT_PER_SITE, TDVP_NORM_TOL, TDVP_OVERLAP_TOL = 1e-4, 1e-5, 1e-3
+TDVP_PLAIN_B = 4
+# K2 at TDVP's shapes: (case, B, d, M, real): the realified site (nt' = 2d
+# = 4, M' = 2M = 6) and bond (nt' = 2) steps of the quench, and the real
+# bond step of imaginary time (nt = 1, M = 3).  Each against its twin
+# and an f64 run of the twin: the kernel within TDVP_K2_F64X the twin's
+# error.
+TDVP_K2_SHAPES = (("sc_site", TDVP_B, D, M, False),
+                  ("sc_bond", TDVP_B, 1, M, False),
+                  ("real_bond", 1, 1, M, True))
+TDVP_K2_F64X = 3
+# TDVP against scipy's expm of the dense H (tests/test_tdvp.py:48-67's
+# bars): TFI (Jx=-1, Bz=-1.2), N=10, chi=32 (the full bond dimension), a
+# product state, 25 steps of dt=0.02; (dtype, 1 - fidelity, |dE| or None)
+EXACT_N, EXACT_CHI, EXACT_STEPS, EXACT_DT = 10, 32, 25, 0.02
+EXACT_TOLS = (("complex128", 1e-8, 1e-8), ("complex64", 1e-4, None))
+# Imaginary-time one-site TDVP of one chain (f32, K2 at nt=2 and nt=1):
+# 10 sweeps of dt=0.1 from a random state; the f64 energy may rise by at
+# most IMAG_RISE a sweep and ends above REFERENCE_ENERGY - IMAG_RISE
+IMAG_SWEEPS, IMAG_DT, IMAG_RISE = 10, 0.1, 1e-5
 
 
 def emit(**kw):
@@ -208,6 +243,25 @@ def lanczos_work(B, chi, matvecs, out_vectors):
     flops = matvecs * (mv_flops + 10 * B * D * chi * chi)
     nbytes = 4 * (B * (2 * M * chi ** 2 + D * chi ** 2
                        + out_vectors * D * chi ** 2 + 2 * KRYLOV) + M * M * D * D)
+    return flops, nbytes
+
+
+def k2_instance(M, nt):
+    """The f32 template instance tn_fused_lanczos_f32 dispatches (M, nt)
+    to (csrc/fused_lanczos.cu): compile-time <3,2> and <3,4>, else the
+    run-time <0,0>."""
+    return f"launch_tc<{M},{nt}>" if (M, nt) in ((3, 2), (3, 4)) else (
+        "launch_tc<0,0>")
+
+
+def k2_work(B, chi, nt, M, m):
+    """(flops, bytes) of K2 at nt tiles and MPO bond M (f32): m matvecs
+    (2*M*nt chi x chi GEMMs and the coupling fold) and ~10 vector flops per
+    element a step; L, R, x0, W read once, V and (alpha, beta) written."""
+    mv_flops, _ = matvec_work(B, chi, nt, M)
+    flops = m * (mv_flops + 10 * B * nt * chi * chi)
+    nbytes = 4 * (B * ((2 * M + nt + m * nt) * chi ** 2 + 2 * m)
+                  + M * M * nt * nt)
     return flops, nbytes
 
 
@@ -781,10 +835,7 @@ def k2_nt4_phase(torch):
         Vd0, abd0 = K.fused_lanczos_plain(Ld, Cd, Rd, xd, KRYLOV_2S)
     sentinels = breakdown_sentinels(abd, Vd)
     same = bool(torch.equal(abd, abd0) and torch.equal(Vd, Vd0))
-    flops, _ = matvec_work(BATCH, CHI, nt, M)
-    flops = KRYLOV_2S * (flops + 10 * BATCH * nt * CHI * CHI)
-    nbytes = 4 * (BATCH * ((2 * M + nt + KRYLOV_2S * nt) * CHI ** 2
-                           + 2 * KRYLOV_2S) + M * M * nt * nt)
+    flops, nbytes = k2_work(BATCH, CHI, nt, M, KRYLOV_2S)
     bound_ms, bound_by = bound(flops, nbytes)
     bound_tc_ms = bound_tc(flops, nbytes)[0]
     emit(phase="k2_fused_lanczos_nt4", shape=[BATCH, CHI, nt, M, KRYLOV_2S],
@@ -1334,6 +1385,248 @@ def two_site_batched_phase(torch, k2_ms):
           "window")
 
 
+def tdvp_k2_operands(torch, B, chi, d, Mc, real, seed):
+    """K2's kernel-layout operands at a TDVP step: Hermitian complex L, R
+    (L[a,w,c] = conj L[c,w,a]) realified with a real symmetric W (d = 2)
+    or the identity couplings of the bond step (d = 1); with ``real``, the
+    real parts and the real kernel layout."""
+    from tensornetwork_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(seed)
+
+    def herm(*shape):
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return (a + a.transpose(0, 3, 2, 1).conj()) / (2 * chi)
+
+    L, R = herm(B, chi, Mc, chi), herm(B, chi, Mc, chi)
+    x = rng.standard_normal((B, chi, d, chi)) + 1j * rng.standard_normal(
+        (B, chi, d, chi))
+    W = rng.standard_normal((Mc, Mc, d, d))
+    W = (W + W.transpose(1, 0, 3, 2)) / 2 if d > 1 else np.eye(Mc).reshape(
+        Mc, Mc, 1, 1)
+    dev = torch.device(DEV)
+    if real:
+        return K.prepare_operands(*(torch.as_tensor(
+            a.real, dtype=torch.float32, device=dev) for a in (L, W, R, x)))
+    cplx = [torch.as_tensor(a, dtype=torch.complex64, device=dev)
+            for a in (L, R, x)]
+    Wt = torch.as_tensor(W, dtype=torch.float32, device=dev)
+    return K.realify_sandwich_operands(cplx[0], Wt, cplx[1], cplx[2])
+
+
+def k2_tdvp_phase(torch):
+    """K2 at the three shapes TDVP gives it (TDVP_K2_SHAPES), f32: against
+    its twin and an f64 run of the twin, timed by CUDA events beside the
+    twin and the 3xTF32 bound, with the template instance that ran."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    for seed, (case, B, d, Mc, real) in enumerate(TDVP_K2_SHAPES):
+        ops = tdvp_k2_operands(torch, B, CHI, d, Mc, real, 100 + seed)
+        Mk, nt = ops[1].shape[0], ops[1].shape[2]
+        with highest_precision():
+            V, ab = K.fused_lanczos(*ops, KRYLOV)
+            V0, ab0 = K.fused_lanczos_plain(*ops, KRYLOV)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(V).all() and torch.isfinite(ab).all()),
+                  f"K2 ({case}) output not finite")
+            rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
+            f64 = lanczos_f64_errors(torch, ops, V, ab, V0, ab0, KRYLOV)
+            ms = cuda_ms(torch, lambda: K.fused_lanczos(*ops, KRYLOV), 10)
+            plain_ms = cuda_ms(
+                torch, lambda: K.fused_lanczos_plain(*ops, KRYLOV), 3)
+        flops, nbytes = k2_work(B, CHI, nt, Mk, KRYLOV)
+        bound_tc_ms, bound_by = bound_tc(flops, nbytes)
+        emit(phase="k2_tdvp", case=case, shape=[B, CHI, nt, Mk, KRYLOV],
+             instance=k2_instance(Mk, nt), max_rel_err_ab=rel_ab,
+             max_rel_err_V=rel_V, f64_rel_err=f64, ms=ms, plain_ms=plain_ms,
+             bound_tc_ms=bound_tc_ms, bound_by=bound_by,
+             tflops_per_s=flops / ms / 1e9)
+        check(f64["kernel_ab"] <= TDVP_K2_F64X * f64["twin_ab"]
+              and f64["kernel_V"] <= TDVP_K2_F64X * f64["twin_V"],
+              f"K2 ({case}) against f64 beyond {TDVP_K2_F64X}x its f32 "
+              f"twin: {f64}")
+        del V, ab, V0, ab0, ops
+    torch.cuda.empty_cache()
+
+
+def mps_overlaps(torch, A, B):
+    """<A|B> of each instance of two batched stacks (b, N, chi, d, chi),
+    identity boundary environments (the sweeps' convention), complex128."""
+    A, B = A.to(torch.complex128), B.to(torch.complex128)
+    nb, chi = A.shape[0], A.shape[2]
+    E = torch.eye(chi, dtype=A.dtype, device=A.device).expand(nb, chi, chi)
+    for i in range(A.shape[1]):
+        E = torch.einsum("Bac,Basb,Bcsd->Bbd", E, A[:, i].conj(), B[:, i])
+    return E.diagonal(dim1=1, dim2=2).sum(-1)
+
+
+def tdvp_energies(torch, psi, mpo64):
+    """<psi|H|psi>/<psi|psi> of each instance, evaluated in f64."""
+    from tensornetwork_tpu_torch.models.tdvp import mps_mpo_expectation_sc
+    return np.array([float(mps_mpo_expectation_sc(
+        a.to(torch.complex128), mpo64.Ws, mpo64.vL, mpo64.vR).real)
+        for a in psi])
+
+
+def tdvp_batched_phase(torch):
+    """bench.py's batched real-time quench on the _sc path: B=64 TFI N=32
+    chains at chi=64 from random real states, dt=0.05, m=10, complex64.
+    2 warm sweeps, 5 timed by CUDA events with their K2 launches, one more
+    traced for the device's busy time; norms, the f64 energy drift per
+    site, and instances 0-3 against the plain path in complex128."""
+    from tensornetwork_tpu_torch import FiniteTFI
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.ops import kernels as K
+    from tensornetwork_tpu_torch.parallel.batch import (
+        batched_tdvp_one_site_sweep_sc)
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    psi = random_mps_stack(6, TDVP_B * N, CHI, D, dtype=torch.float32).reshape(
+        TDVP_B, N, CHI, D, CHI).to(torch.complex64)
+
+    def sweep(p, mpo=mpo, impl=None):
+        return batched_tdvp_one_site_sweep_sc(
+            p, mpo.Ws, mpo.vL, mpo.vR, TDVP_DT, num_krylov_vecs=KRYLOV,
+            lanczos_impl=impl)
+
+    for _ in range(TDVP_WARM):
+        psi = sweep(psi)
+    start, e0 = psi, tdvp_energies(torch, psi, mpo64)
+    ms, per_sweep = [], []
+    for _ in range(TDVP_TIMED):
+        before = K.launch_counts["fused_lanczos"]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        psi = sweep(psi)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+        per_sweep.append(K.launch_counts["fused_lanczos"] - before)
+    check(bool(torch.isfinite(torch.view_as_real(psi)).all())
+          and psi.shape == (TDVP_B, N, CHI, D, CHI),
+          "TDVP batch not finite or misshapen")
+    norms = mps_overlaps(torch, psi, psi).real.sqrt().cpu().numpy()
+    drift = np.abs(tdvp_energies(torch, psi, mpo64) - e0) / N
+    ref = start[:TDVP_PLAIN_B].to(torch.complex128)
+    for _ in range(TDVP_TIMED):
+        ref = sweep(ref, mpo64, "plain")
+    mine = psi[:TDVP_PLAIN_B]
+    overlap = (mps_overlaps(torch, mine, ref).abs() / (
+        mps_overlaps(torch, mine, mine).real
+        * mps_overlaps(torch, ref, ref).real).sqrt()).cpu().numpy()
+    sweep_ms = statistics.median(ms)
+    t0 = time.perf_counter()
+    busy_ms, top = device_busy_ms(torch, lambda: sweep(psi), top=DEVICE_TOP)
+    emit(phase="tdvp_batched", batch=TDVP_B, chi=CHI, dt=TDVP_DT,
+         sweeps=[TDVP_WARM, TDVP_TIMED], sweep_ms=ms,
+         instance_sweeps_per_s=TDVP_B / (sweep_ms / 1e3),
+         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / sweep_ms,
+         device_top=top, profile_seconds=time.perf_counter() - t0,
+         k2_launches_per_sweep=per_sweep, norm_err_max=float(
+             np.abs(norms - 1).max()), drift_per_site_max=float(drift.max()),
+         e0_median=float(np.median(e0)),
+         plain_overlap_min=float(overlap.min()))
+    check(all(c == TDVP_PER_SWEEP for c in per_sweep),
+          f"K2 launches per TDVP sweep {per_sweep}, expected {TDVP_PER_SWEEP}")
+    check(bool(np.all(np.abs(norms - 1) <= TDVP_NORM_TOL)),
+          f"TDVP norms off 1 by up to {np.abs(norms - 1).max()}")
+    check(bool(np.all(drift < TDVP_DRIFT_PER_SITE)),
+          f"TDVP energy drift per site up to {drift.max()}")
+    check(bool(np.all(overlap >= 1 - TDVP_OVERLAP_TOL)),
+          f"TDVP states against the plain complex128 path: {overlap}")
+
+
+def dense_from_stack(As):
+    """The boundary block [0, :, 0] of a stacked MPS as a state vector."""
+    acc = As[0]
+    for A in As[1:]:
+        acc = np.einsum("a...b,bsc->a...sc", acc, A)
+    return acc.reshape(As.shape[1], -1, As.shape[1])[0, :, 0]
+
+
+def tdvp_exact_phase(torch):
+    """TDVP from a product state against scipy's expm of the dense H: the
+    _sc path (TDVP(split_complex=True), the realified K2 at every step)
+    and the complex-dtype path (no kernel in real time), in complex128 and
+    complex64."""
+    import scipy.linalg as sla
+    from tensornetwork_tpu_torch import FiniteTFI, mpo_to_dense
+    from tensornetwork_tpu_torch.models.tdvp import TDVP
+    from tensornetwork_tpu_torch.ops import kernels as K
+    mpo = FiniteTFI(-1.0, -1.2, N=EXACT_N, dtype=torch.float64)
+    v = np.array([1.0, 0.6]) / np.hypot(1.0, 0.6)
+    psi0 = np.array([1.0])
+    for _ in range(EXACT_N):
+        psi0 = np.kron(psi0, v)
+    t = EXACT_STEPS * EXACT_DT
+    psi_t = sla.expm(-1j * t * mpo_to_dense(mpo)) @ psi0
+    for name, fid_tol, de_tol in EXACT_TOLS:
+        dtype = getattr(torch, name)
+        for sc in (True, False):
+            As = torch.zeros((EXACT_N, EXACT_CHI, D, EXACT_CHI), dtype=dtype,
+                             device=DEV)
+            As[:, 0, :, 0] = torch.as_tensor(v, dtype=dtype)
+            before = K.launch_counts["fused_lanczos"]
+            t0 = time.perf_counter()
+            tdvp = TDVP(As, mpo, split_complex=sc)
+            e0 = tdvp.energy()
+            tdvp.evolve(t, EXACT_STEPS)
+            de = tdvp.energy() - e0
+            seconds = time.perf_counter() - t0
+            launches = K.launch_counts["fused_lanczos"] - before
+            vec = dense_from_stack(tdvp.As.cpu().numpy())
+            infid = 1 - abs(np.vdot(vec / np.linalg.norm(vec), psi_t))
+            emit(phase="tdvp_exact", dtype=name, split_complex=sc, N=EXACT_N,
+                 chi=EXACT_CHI, steps=EXACT_STEPS, dt=EXACT_DT,
+                 infidelity=float(infid), delta_E=de, k2_launches=launches,
+                 seconds=seconds)
+            want = EXACT_STEPS * 4 * EXACT_N if sc else 0
+            check(launches == want,
+                  f"TDVP exact ({name}, sc={sc}): {launches} K2 launches, "
+                  f"expected {want}")
+            check(infid < fid_tol and (de_tol is None or abs(de) < de_tol),
+                  f"TDVP exact ({name}, sc={sc}): 1 - fidelity {infid}, "
+                  f"delta E {de}")
+
+
+def tdvp_imaginary_phase(torch):
+    """Imaginary-time one-site TDVP of one TFI N=32 chain at chi=64, f32,
+    from a random state: K2 at the site (nt=2) and bond (nt=1) steps, 4N
+    launches a sweep; the f64 energy falls and stays variational."""
+    from tensornetwork_tpu_torch import FiniteTFI
+    from tensornetwork_tpu_torch.models.dmrg import (mps_mpo_expectation,
+                                                     random_mps_stack)
+    from tensornetwork_tpu_torch.models.tdvp import tdvp_one_site_sweep
+    from tensornetwork_tpu_torch.ops import kernels as K
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    As = random_mps_stack(7, N, CHI, D, dtype=torch.float32)
+
+    def energy(As):
+        return float(mps_mpo_expectation(As.double(), mpo64.Ws, mpo64.vL,
+                                         mpo64.vR))
+
+    energies, per_sweep, times = [energy(As)], [], []
+    for _ in range(IMAG_SWEEPS):
+        before = K.launch_counts["fused_lanczos"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        As = tdvp_one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR, IMAG_DT,
+                                 num_krylov_vecs=KRYLOV, imaginary=True)
+        energies.append(energy(As))    # synchronises
+        times.append(time.perf_counter() - t0)
+        per_sweep.append(K.launch_counts["fused_lanczos"] - before)
+    rise = float(np.max(np.diff(energies)))
+    emit(phase="tdvp_imaginary", N=N, chi=CHI, dt=IMAG_DT,
+         delta_E_per_sweep=[e - REFERENCE_ENERGY for e in energies],
+         largest_rise=rise, sweep_s=times, k2_launches_per_sweep=per_sweep)
+    check(all(c == TDVP_PER_SWEEP for c in per_sweep),
+          f"K2 launches per imaginary-time sweep {per_sweep}, expected "
+          f"{TDVP_PER_SWEEP}")
+    check(rise <= IMAG_RISE and energies[-1] >= REFERENCE_ENERGY - IMAG_RISE,
+          f"imaginary-time energies {energies}")
+
+
 def two_site_large_phase(torch, chi, tier, sweeps, matvec_ms):
     """Two-site sweeps of one TFI N=32 chain at bond dimension chi through
     the tier two_site_tier picks, from a random state.  The launch counts
@@ -1561,6 +1854,17 @@ def main():
     emit(phase="two_site_batched_launches", chi=CHI, **counts)
     check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
     launches["fused_lanczos"] += counts["fused_lanczos"]
+
+    # TDVP: K2 at its shapes, then its paths, each with its own counts
+    k2_tdvp_phase(torch)
+    for tdvp_path in (tdvp_batched_phase, tdvp_exact_phase,
+                      tdvp_imaginary_phase):
+        K.reset_launch_counts()
+        tdvp_path(torch)
+        counts = dict(K.launch_counts)
+        emit(phase=tdvp_path.__name__[:-6] + "_launches", **counts)
+        check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
+        launches["fused_lanczos"] += counts["fused_lanczos"]
 
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],

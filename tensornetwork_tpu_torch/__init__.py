@@ -1,6 +1,9 @@
 """PyTorch/CUDA port of :mod:`tensornetwork_tpu`, one slice at a time.
 
-Ported so far: one- and two-site DMRG, single instance and batched.  The
+Ported so far: one- and two-site DMRG, single instance and batched, and
+TDVP time evolution (``models.tdvp``; batched real-time quenches in
+``parallel.batch``), whose local evolutions run K2, the fused Lanczos, on
+realified complex operands.  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
 CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
@@ -18,9 +21,16 @@ from tensornetwork_tpu_torch.models.dmrg import (FiniteDMRG, SweepResult,
                                                  one_site_sweep,
                                                  random_mps_stack,
                                                  two_site_sweep)
-from tensornetwork_tpu_torch.models.mpo import MPO, FiniteTFI, mpo_to_dense
-from tensornetwork_tpu_torch.ops.decompositions import (subspace_truncate,
+from tensornetwork_tpu_torch.models.mpo import (MPO, FiniteTFI, FiniteXXZ,
+                                               mpo_to_dense)
+from tensornetwork_tpu_torch.models.tdvp import (TDVP, tdvp_one_site_sweep,
+                                                 tdvp_one_site_sweep_sc,
+                                                 tdvp_two_site_sweep,
+                                                 tdvp_two_site_sweep_sc)
+from tensornetwork_tpu_torch.ops.decompositions import (polar_complete,
+                                                        subspace_truncate,
                                                         svd_masked)
 from tensornetwork_tpu_torch.parallel.batch import (BatchedDMRG,
                                                     batched_one_site_sweep,
+                                                    batched_tdvp_one_site_sweep_sc,
                                                     batched_two_site_sweep)

@@ -1,6 +1,6 @@
 """Carry state from the JAX package into the port.
 
-Both take numpy arrays (``np.asarray`` of the JAX package's arrays) and
+Each takes numpy arrays (``np.asarray`` of the JAX package's arrays) and
 return the port's tensors (copies, never views of the arrays), so that the two packages compute the same thing
 from the same numbers.  ``dtype=None`` keeps the arrays' dtype.  A
 bfloat16 array (``np.asarray`` of a JAX bfloat16 array has the
@@ -36,3 +36,14 @@ def mps_from_numpy(As, *, device: Optional[Device] = None,
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """An MPS stack (N, chi, d, chi), or a batch of them, as a tensor."""
     return _tensor(As, device, dtype)
+
+
+def mps_from_split_complex(re, im, *, device: Optional[Device] = None,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """A complex MPS stack (or batch) from the real and imaginary parts of
+    the JAX package's split-complex state (``np.asarray`` of its ``SC``'s
+    ``re`` and ``im``): complex128 from float64 parts, complex64 from
+    float32 ones, unless ``dtype`` is given."""
+    re, im = np.asarray(re), np.asarray(im)
+    return _tensor(re + 1j * im.astype(re.dtype), device, dtype)

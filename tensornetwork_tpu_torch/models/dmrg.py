@@ -38,7 +38,8 @@ from tensornetwork_tpu_torch.ops import decompositions, kernels, krylov
 # Single-instance defaults, the JAX package's off-TPU ones; the local
 # solve defaults to the fused kernel, as the JAX package does on its
 # accelerator.
-QR_IMPL = "householder"   # "householder" | "cholesky" | "polar"
+QR_IMPL = "householder"   # decompositions.qr: "householder" | "cholesky" |
+                          # "polar" | "polar_complete"
 RITZ_IMPL = "eigh"        # "eigh" | "power"
 LANCZOS_IMPL = "fused"    # "fused" | "plain" (the JAX package's "xla")
 # The one-site site epilogue (gauge shift and environment growth), the

@@ -86,6 +86,57 @@ def FiniteTFI(Jx: Union[float, Sequence[float]],
                  for a in (Ws, vL, vR)))
 
 
+def _spin_half():
+    Sp = np.array([[0.0, 1.0], [0.0, 0.0]])
+    Sm = np.array([[0.0, 0.0], [1.0, 0.0]])
+    Sz = np.diag([0.5, -0.5])
+    return Sp, Sm, Sz, np.eye(2)
+
+
+def FiniteXXZ(Jz: Union[float, Sequence[float]],
+              Jxy: Union[float, Sequence[float]],
+              Bz: Union[float, Sequence[float]],
+              N: Optional[int] = None,
+              dtype: Optional[torch.dtype] = None,
+              device: Optional[Device] = None) -> MPO:
+    """Heisenberg XXZ MPO, H = sum_i Jz[i] Sz_i Sz_{i+1} + sum_i Jxy[i]/2
+    (S+_i S-_{i+1} + S-_i S+_{i+1}) - sum_i Bz[i] Sz_i, spin-1/2 operators
+    (Sz = diag(1/2, -1/2)), M = 5 (counterpart of
+    ``tensornetwork_tpu.models.mpo.FiniteXXZ``).  ``Jz``, ``Jxy`` have
+    length N-1 and ``Bz`` length N (scalars broadcast given N)."""
+    dtype = DEFAULT_DTYPE if dtype is None else dtype
+    device = default_device(device)
+    if N is None:
+        Bz = np.asarray(Bz, dtype=np.float64)
+        if Bz.ndim == 0:
+            raise ValueError("pass N for scalar couplings")
+        N = len(Bz)
+    Jz = np.broadcast_to(np.asarray(Jz, np.float64), (N - 1,)).copy()
+    Jxy = np.broadcast_to(np.asarray(Jxy, np.float64), (N - 1,)).copy()
+    Bz = np.broadcast_to(np.asarray(Bz, np.float64), (N,)).copy()
+    Sp, Sm, Sz, I = _spin_half()
+    M = 5
+    Ws = np.zeros((N, M, M, 2, 2))
+    Jzp = np.concatenate([Jz, [0.0]])
+    Jxyp = np.concatenate([Jxy, [0.0]])
+    for i in range(N):
+        Ws[i, 0, 0] = I
+        Ws[i, 1, 0] = Sp
+        Ws[i, 2, 0] = Sm
+        Ws[i, 3, 0] = Sz
+        Ws[i, 4, 0] = -Bz[i] * Sz
+        Ws[i, 4, 1] = Jxyp[i] / 2.0 * Sm
+        Ws[i, 4, 2] = Jxyp[i] / 2.0 * Sp
+        Ws[i, 4, 3] = Jzp[i] * Sz
+        Ws[i, 4, 4] = I
+    vL = np.zeros(M)
+    vL[M - 1] = 1.0
+    vR = np.zeros(M)
+    vR[0] = 1.0
+    return MPO(*(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (Ws, vL, vR)))
+
+
 def mpo_to_dense(mpo: MPO) -> np.ndarray:
     """The full (d^N, d^N) operator as a numpy array: the
     exact-diagonalisation oracle of the tests."""

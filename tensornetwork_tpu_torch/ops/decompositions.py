@@ -3,8 +3,11 @@
 Counterpart of the gauge and truncation part of
 :mod:`tensornetwork_tpu.ops.decompositions`: ``ns_polar``, ``cholqr2``,
 ``svd_masked`` and ``subspace_truncate``; Householder QR is
-``torch.linalg.qr``.  Every function works on stacks of matrices (leading
-batch dimensions).
+``torch.linalg.qr``.  Also ``polar_complete``, the full-isometry polar
+split of the TDVP gauge shifts (the JAX package's ``ns_polar_complete``
+and its split-complex ``polar_complete`` in one).  Every function works on
+stacks of matrices (leading batch dimensions); ``ns_polar``,
+``polar_complete`` and ``svd_masked`` take complex ones too.
 """
 from __future__ import annotations
 
@@ -20,27 +23,74 @@ def ns_polar(m: torch.Tensor, quintic_iters: Optional[int] = None,
     """Polar decomposition m = Q.P (Q column-isometric, P = Q^H m) by a
     matmul-only Newton-Schulz iteration: quintic steps (coefficients
     3.4445, -4.7750, 2.0315) inflate the small singular values, cubic
-    steps polish.  Counts default to (14, 7) in float32 and (20, 10)
-    otherwise, as in the JAX package.
+    steps polish.  Counts default to (14, 7) in float32 and complex64 and
+    (20, 10) otherwise, as in the JAX package.
 
     On an exactly rank-deficient panel the result is a PARTIAL isometry:
     the null columns stay zero."""
+    X = _newton_schulz(m, quintic_iters, cubic_iters)
+    return X, X.mH @ m
+
+
+def _single_precision(dtype: torch.dtype) -> bool:
+    return dtype in (torch.float32, torch.complex64)
+
+
+def _newton_schulz(m, quintic_iters, cubic_iters):
+    """The isometric factor of :func:`ns_polar`."""
     if quintic_iters is None:
-        quintic_iters = 14 if m.dtype == torch.float32 else 20
+        quintic_iters = 14 if _single_precision(m.dtype) else 20
     if cubic_iters is None:
-        cubic_iters = 7 if m.dtype == torch.float32 else 10
-    k = m.shape[-1]
+        cubic_iters = 7 if _single_precision(m.dtype) else 10
     nrm = torch.linalg.vector_norm(m, dim=(-2, -1), keepdim=True)
     X = m / torch.where(nrm > 0, nrm * 1.01, 1.0)
-    eye = torch.eye(k, dtype=m.dtype, device=m.device)
     a, b, c = 3.4445, -4.7750, 2.0315
     for _ in range(quintic_iters):
         G = X.mH @ X
         X = a * X + X @ (b * G + c * (G @ G))
-    for _ in range(cubic_iters):
-        G = X.mH @ X
-        X = 0.5 * X @ (3.0 * eye - G)
-    return X, X.mH @ m
+    return _cubic_polish(X, cubic_iters)
+
+
+def _cubic_polish(X, iters: int):
+    """Newton-Schulz cubic steps X <- X (3 I - X^H X) / 2: they push the
+    singular values to 1 and keep span(X)."""
+    eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+    for _ in range(iters):
+        X = 0.5 * X @ (3.0 * eye - X.mH @ X)
+    return X
+
+
+def polar_complete(m: torch.Tensor, quintic_iters: Optional[int] = None,
+                   cubic_iters: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Polar split m = Q.P (P = Q^H m) of a stack of tall (n >= k) real or
+    complex matrices with Q a FULL isometry (Q^H Q = I), also where m is
+    rank-deficient and :func:`ns_polar` leaves the null columns at zero.
+
+    The defect projector D = I - X^H X of the Newton-Schulz factor X is
+    sharpened to a hard projector by 25 smoothstep steps (D <- 3D^2 -
+    2D^3), the leading k coordinate directions projected off col(X) and
+    onto the defect are orthonormalised by a second Newton-Schulz pass and
+    added, and 4 cubic steps polish Q.  The completion is orthogonal to
+    col(m), so Q^H m = X^H m.  Matmul-only, with the schedule of
+    :func:`ns_polar`.  Counterpart of the JAX package's
+    ``ns_polar_complete`` (real) and split-complex ``polar_complete``: the
+    completion directions seed entanglement growth in the TDVP gauge
+    shifts of a product state, as Householder QR's do."""
+    n, k = m.shape[-2], m.shape[-1]
+    if n < k:
+        raise ValueError(f"need n >= k, got {tuple(m.shape)}")
+    eye = torch.eye(k, dtype=m.dtype, device=m.device)
+    X = _newton_schulz(m, quintic_iters, cubic_iters)
+    D = eye - X.mH @ X
+    for _ in range(25):
+        D2 = D @ D
+        D = 3.0 * D2 - 2.0 * (D2 @ D)
+    E = torch.eye(n, k, dtype=m.dtype, device=m.device).expand(m.shape)
+    Y = E - X @ (X.mH @ E)
+    Z = _newton_schulz(Y @ D, quintic_iters, cubic_iters) @ D
+    Q = _cubic_polish(X + Z, 4)
+    return Q, Q.mH @ m
 
 
 def cholqr2(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,14 +122,17 @@ def cholqr2(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def qr(m: torch.Tensor, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """An isometric/rest split m = Q.R of a stack of tall matrices:
-    ``"householder"`` (triangular R), ``"cholesky"`` (:func:`cholqr2`) or
-    ``"polar"`` (:func:`ns_polar`)."""
+    ``"householder"`` (triangular R), ``"cholesky"`` (:func:`cholqr2`),
+    ``"polar"`` (:func:`ns_polar`) or ``"polar_complete"``
+    (:func:`polar_complete`)."""
     if impl == "householder":
         return torch.linalg.qr(m)
     if impl == "cholesky":
         return cholqr2(m)
     if impl == "polar":
         return ns_polar(m)
+    if impl == "polar_complete":
+        return polar_complete(m)
     raise ValueError(f"unknown qr_impl {impl!r}")
 
 
@@ -110,7 +163,8 @@ def svd_masked(matrix: torch.Tensor, max_singular_values: int,
     default Jacobi routine's f32 singular vectors are orthonormal only to
     its tolerance, and a two-site sweep that builds its environments from
     them reported f32 Ritz energies ~1e-4 too high (measured on an H100 at
-    N=10, chi=16)."""
+    N=10, chi=16).  Complex matrices give complex ``u``/``vh`` and real ``s`` (the JAX
+    package's ``svd_masked_sc``)."""
     kw = {"driver": "gesvd"} if matrix.is_cuda else {}
     u, s, vh = torch.linalg.svd(matrix, full_matrices=False, **kw)
     k = min(int(max_singular_values), s.shape[-1])

@@ -48,7 +48,11 @@ and K1 in f32 (:func:`heff_matvec_route`: K7's three launches without
 <x, y>); K5's grid route, and every f64 instance, are fp32/fp64 SIMT.
 
 Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
-(:func:`fused_lanczos_ground_state_2s`).
+(:func:`fused_lanczos_ground_state_2s`).  TDVP's local evolutions
+``exp(coeff H_eff) v`` run :func:`fused_lanczos` too: on real states
+(:func:`expm_multiply_fused`, imaginary time, nt = d or 1 at the bond)
+and on complex ones through the realified operands, M and nt doubled
+(:func:`realify_sandwich_operands`, :func:`expm_multiply_fused_sc`).
 
 Beside the local solve:
 
@@ -79,8 +83,10 @@ blocks of the last launch of the grid-wide kernels.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tensornetwork_tpu_torch.config import highest_precision
@@ -602,6 +608,111 @@ def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
             w.data_ptr(), B, chi, d, M, m, float(delta))
     launch_counts["fused_lanczos"] += 1
     return V, ab
+
+
+# ---------------------------------------------------------------------------
+# K2's exponential callers: TDVP's local evolutions
+# ---------------------------------------------------------------------------
+
+
+def _sc_triple_signs() -> np.ndarray:
+    """G[rho, sigma, kappa, tau]: the sign of the triple product of the
+    rho part of L, the sigma part of x and the kappa part of R (0 real, 1
+    imaginary) in component tau of L x R, where tau is the parity of the
+    imaginary factors (i^2 = -1); zero elsewhere."""
+    g = np.zeros((2, 2, 2, 2))
+    for r, s, k in itertools.product(range(2), repeat=3):
+        n_im = r + s + k
+        g[r, s, k, n_im % 2] = -1.0 if (n_im // 2) % 2 else 1.0
+    return g
+
+
+_SC_TRIPLE_SIGNS = _sc_triple_signs()
+
+
+def realify_sandwich_operands(L, W, R, x):
+    """Complex solver-layout operands -- L (B, a, M, c), R (B, b, M, d), x
+    (B, a, t, b) -- and a real W (M, M, d, d) as the real kernel-layout
+    operands of the realified H_eff, with both M and d doubled.  Hermitian
+    H has real tridiagonal coefficients, so the complex Lanczos equals the
+    real three-term Lanczos of the realified operator, which K2 runs.
+
+    Index doubling: w' = 2w+rho, v' = 2v+kappa, t' = 2t+sigma (rho, kappa,
+    sigma: 0 the real part, 1 the imaginary part); the couplings W'[(w,
+    rho), (v, kappa), (s, tau), (t, sigma)] = W[w, v, s, t] G[rho, sigma,
+    kappa, tau] encode the complex triple product (:func:`_sc_triple_signs`).
+    Returns (Lt', W', Rt', xt') as :func:`prepare_operands` lays them out.
+    Counterpart of the JAX package's ``_realify_sandwich_operands``."""
+    B, chi, M, _ = L.shape
+    d = x.shape[2]
+
+    def split(t, n):
+        return torch.stack([t.real, t.imag], dim=3).reshape(B, chi, 2 * n, chi)
+
+    g = torch.as_tensor(_SC_TRIPLE_SIGNS, dtype=W.dtype, device=W.device)
+    Wp = (W[:, None, :, None, :, None, :, None]
+          * g.permute(0, 2, 3, 1)[None, :, None, :, None, :, None, :])
+    return prepare_operands(split(L, M), Wp.reshape(2 * M, 2 * M, 2 * d, 2 * d),
+                            split(R, M), split(x, d))
+
+
+def _floor_delta(delta: float, dtype: torch.dtype) -> float:
+    """The breakdown tolerance above the accumulation noise: plain
+    three-term betas bottom out near 1e-6 in f32, and a chain continued on
+    noise feeds wrong Ritz directions into the exponential's weights."""
+    return max(delta, 50 * torch.finfo(dtype).eps)
+
+
+def fused_lanczos_factorization_sc(L, W, R, x0, num_krylov_vecs: int,
+                                   delta: float = 1e-8):
+    """Lanczos factorization of every instance's complex H_eff by
+    :func:`fused_lanczos` on the realified operands
+    (:func:`realify_sandwich_operands`).  Operands: complex L (B, a, M,
+    c), real W (M, M, d, d), complex R (B, b, M, d), complex x0 (B, a, t,
+    b).  Returns (V (B, m, a, t, b) complex, alphas (B, m), betas (B,
+    m-1)), real coefficients with K2's sentinels: the semantics of
+    :func:`krylov.lanczos_factorization_sc` without reorthogonalisation.
+    Counterpart of the JAX package's ``fused_lanczos_factorization_sc``."""
+    m = num_krylov_vecs
+    Lt, Wp, Rt, xt = realify_sandwich_operands(L, W, R, x0)
+    Vp, ab = fused_lanczos(Lt, Wp, Rt, xt, m, _floor_delta(delta, xt.dtype))
+    B, chi, d = x0.shape[:3]
+    # kernel layout [t'](a, b), t' = 2t + sigma -> solver layout (a, t, b)
+    Vp = Vp.reshape(B, m, d, 2, chi, chi)
+    V = torch.complex(Vp[:, :, :, 0], Vp[:, :, :, 1]).permute(0, 1, 3, 2, 4)
+    return V, ab[:, 0], ab[:, 1, :m - 1]
+
+
+def expm_multiply_fused_sc(L, W, R, v, coeff, num_krylov_vecs: int,
+                           delta: float = 1e-8):
+    """``exp(coeff H_eff) v`` of every instance's complex state through
+    :func:`fused_lanczos_factorization_sc` (operands as there; ``coeff`` a
+    number or a (B,) tensor, real time ``-1j * dt``).  Returns (B, a, t,
+    b), complex.  Counterpart of the JAX package's
+    ``expm_multiply_fused_sc``: :func:`krylov.expm_multiply_lanczos_sc`
+    with the plain three-term recurrence, norm-preserving up to the
+    projection error."""
+    nrm = torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=-1)
+    V, alphas, betas = fused_lanczos_factorization_sc(L, W, R, v,
+                                                      num_krylov_vecs, delta)
+    return krylov.combine_basis(V, krylov.expm_weights(alphas, betas, coeff),
+                                nrm)
+
+
+def expm_multiply_fused(L, W, R, v, coeff, num_krylov_vecs: int,
+                        delta: float = 1e-8):
+    """``exp(coeff H_eff) v`` of every instance's real state through
+    :func:`fused_lanczos`: solver-layout L (B, a, M, c), W (M, M, d, d), R
+    (B, b, M, d), v (B, a, t, b); ``coeff`` a number or a (B,) tensor
+    (imaginary time: real).  Counterpart of the JAX package's
+    ``expm_multiply_fused``."""
+    m = num_krylov_vecs
+    nrm = torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=-1)
+    Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, v)
+    V, ab = fused_lanczos(Lt, W, Rt, xt, m, _floor_delta(delta, xt.dtype))
+    y = krylov.combine_basis(
+        V, krylov.expm_weights(ab[:, 0], ab[:, 1, :m - 1], coeff), nrm)
+    return finalize_output(y)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Lanczos eigensolver, batched over a leading axis.
 
-Counterpart of the main-path part of :mod:`tensornetwork_tpu.ops.krylov`:
+Counterpart of the Lanczos part of :mod:`tensornetwork_tpu.ops.krylov`:
 the same static iteration counts, the same invariant-subspace masks,
 ``delta`` and +1e10 sentinels, written as a Python loop over the Krylov
 steps with the batch as the leading dimension of every tensor.  This plain
-Lanczos is also the oracle of the fused-Lanczos kernel.
+Lanczos is also the oracle of the fused-Lanczos kernel.  The exponential
+``exp(coeff * A) v`` (:func:`expm_multiply_lanczos`) takes real or complex
+states; the JAX package's split-complex forms (``_sc``) take complex
+tensors here, which the card has natively.
 """
 from __future__ import annotations
 
@@ -31,6 +34,25 @@ def lanczos_factorization(matvec: Callable, v0: torch.Tensor,
     ``v0``: (B, n); ``matvec`` maps (B, n) to (B, n).  Returns ``(V,
     alphas, betas)`` with ``V`` (B, m, n) orthonormal rows, ``alphas``
     (B, m) and ``betas`` (B, m-1) the tridiagonal projection."""
+    return _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
+                    False)
+
+
+def lanczos_factorization_sc(matvec: Callable, v0: torch.Tensor,
+                             num_krylov_vecs: int, delta: float = 1e-8
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """:func:`lanczos_factorization` of a Hermitian operator on complex
+    states, reorthogonalised, with ``alpha_j = Re<v_j, H v_j>`` (real by
+    Hermiticity) and real ``(alphas, betas)``.  Counterpart of the JAX
+    package's split-complex ``lanczos_factorization_sc``."""
+    V, alphas, betas = _lanczos(matvec, v0, num_krylov_vecs, True, delta,
+                                True)
+    return V, alphas.real, betas.real
+
+
+def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
+             real_alpha):
     B, n = v0.shape
     m = num_krylov_vecs
     nrm = torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
@@ -45,6 +67,8 @@ def lanczos_factorization(matvec: Callable, v0: torch.Tensor,
         vj = V[:, j]
         w = matvec(vj).to(V.dtype)
         alpha = _bdot(vj, w)
+        if real_alpha:
+            alpha = alpha.real.to(w.dtype)
         w = w - alpha[:, None] * vj
         if j > 0:
             w = w - betas[:, j - 1, None] * V[:, j - 1]
@@ -145,3 +169,98 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
     norms = torch.linalg.vector_norm(vecs, dim=-1, keepdim=True)
     vecs = vecs / torch.where(norms > delta, norms, 1.0)
     return evals[:, :numeig], vecs.reshape((B, numeig) + tuple(shape))
+
+
+def _coeff_parts(coeff, B: int, dtype: torch.dtype, device):
+    """(cr, ci) of a coefficient -- a number or a tensor of shape () or
+    (B,) -- as real (B,) tensors of ``dtype``; ``ci`` is None for a real
+    coefficient (a float, or a tensor of a real dtype)."""
+    if isinstance(coeff, torch.Tensor):
+        cr, ci = ((coeff.real, coeff.imag) if coeff.is_complex()
+                  else (coeff, None))
+    else:
+        cr = complex(coeff).real
+        ci = complex(coeff).imag if isinstance(coeff, complex) else None
+
+    def per_instance(c):
+        return torch.as_tensor(c, dtype=dtype, device=device).expand(B)
+
+    return per_instance(cr), None if ci is None else per_instance(ci)
+
+
+def expm_weights(alphas: torch.Tensor, betas: torch.Tensor,
+                 coeff) -> torch.Tensor:
+    """Krylov weights ``exp(coeff T) e1`` of real tridiagonal projections
+    (``alphas`` (B, m), ``betas`` (B, m-1)), by the eigendecomposition of
+    T.  Dead steps' +1e10 sentinels become the first alpha (their basis
+    rows are zero, so the result does not change and exp stays finite).
+    ``coeff``: a number or a (B,) tensor, real or complex; a complex one
+    is evaluated as ``exp(cr l) (cos(ci l) + i sin(ci l))``.  Returns (B,
+    m), complex for a complex coefficient."""
+    alphas = torch.where(alphas.abs() >= 1e9, alphas[:, :1], alphas)
+    T = torch.diag_embed(alphas)
+    if betas.shape[-1]:
+        T = T + torch.diag_embed(betas, 1) + torch.diag_embed(betas, -1)
+    evals, evecs = torch.linalg.eigh(T)
+    cr, ci = _coeff_parts(coeff, alphas.shape[0], evals.dtype, evals.device)
+    amp = torch.exp(cr[:, None] * evals) * evecs[:, 0, :]
+
+    def rotate(c):
+        return (evecs @ c[:, :, None])[:, :, 0]
+
+    if ci is None:
+        return rotate(amp)
+    ph = ci[:, None] * evals
+    return torch.complex(rotate(amp * torch.cos(ph)),
+                         rotate(amp * torch.sin(ph)))
+
+
+def combine_basis(V: torch.Tensor, weights: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """``scale_b * sum_k weights[b, k] V[b, k]`` of a basis V (B, m, ...),
+    in the wider of the two dtypes."""
+    dtype = torch.promote_types(V.dtype, weights.dtype)
+    y = torch.einsum("Bk,Bk...->B...", weights.to(dtype), V.to(dtype))
+    return y * scale.to(dtype).reshape((-1,) + (1,) * (y.dim() - 1))
+
+
+def _expm_multiply(factorization, matvec, v, coeff, num_krylov_vecs, delta):
+    B, shape = v.shape[0], v.shape[1:]
+    n = v[0].numel()
+
+    def mv(x):
+        return matvec(x.reshape(v.shape)).reshape(B, n)
+
+    vf = v.reshape(B, n)
+    V, alphas, betas = factorization(mv, vf, min(num_krylov_vecs, n),
+                                     delta=delta)
+    weights = expm_weights(alphas.real, betas.real, coeff)
+    out = combine_basis(V, weights, torch.linalg.vector_norm(vf, dim=-1))
+    return out.reshape((B,) + tuple(shape))
+
+
+def expm_multiply_lanczos(matvec: Callable, v: torch.Tensor, coeff,
+                          num_krylov_vecs: int = 20,
+                          delta: float = 1e-8) -> torch.Tensor:
+    """``exp(coeff * A) v`` per instance for a Hermitian ``A``, by the
+    reorthogonalised Lanczos projection (:func:`lanczos_factorization`) and
+    the exponential of the small tridiagonal (:func:`expm_weights`).
+
+    ``v``: (B, *shape), real or complex; ``matvec`` maps (B, *shape) to the
+    same.  ``coeff``: a number or a (B,) tensor, real (imaginary time) or
+    complex (real time: ``-1j * dt``).  The norm of ``v`` is kept up to the
+    Krylov projection error.  Counterpart of the JAX package's
+    ``expm_multiply_lanczos``, batched."""
+    return _expm_multiply(lanczos_factorization, matvec, v, coeff,
+                          num_krylov_vecs, delta)
+
+
+def expm_multiply_lanczos_sc(matvec: Callable, v: torch.Tensor, coeff,
+                             num_krylov_vecs: int = 20,
+                             delta: float = 1e-8) -> torch.Tensor:
+    """:func:`expm_multiply_lanczos` on complex states through
+    :func:`lanczos_factorization_sc` (real alphas).  Counterpart of the
+    JAX package's split-complex ``expm_multiply_lanczos_sc``; ``coeff`` as
+    there, or a (B,) tensor of per-instance coefficients."""
+    return _expm_multiply(lanczos_factorization_sc, matvec, v, coeff,
+                          num_krylov_vecs, delta)

@@ -1,6 +1,8 @@
-"""Batched one- and two-site DMRG over many independent instances.
+"""Batched one- and two-site DMRG, and batched real-time TDVP, over many
+independent instances.
 
-Counterpart of the DMRG part of :mod:`tensornetwork_tpu.parallel.batch`.
+Counterpart of the DMRG and TDVP part of
+:mod:`tensornetwork_tpu.parallel.batch`.
 The instances are a leading dimension of every tensor; in the local solve
 that dimension is the fused-Lanczos kernel's grid (one block per
 instance).  There is one route: the JAX package's paired/unpaired split
@@ -14,6 +16,7 @@ import torch
 
 from tensornetwork_tpu_torch.config import Device, as_tensor, highest_precision
 from tensornetwork_tpu_torch.models import dmrg as _dmrg
+from tensornetwork_tpu_torch.models import tdvp as _tdvp
 from tensornetwork_tpu_torch.models.mpo import MPO
 
 
@@ -122,3 +125,20 @@ class BatchedDMRG:
                 num_krylov_vecs=num_krylov_vecs, renvs=renvs)
             self.As, self.energies, renvs = res.As, res.energy, res.renvs
         return self.energies
+
+
+def batched_tdvp_one_site_sweep_sc(As_batch, Ws, vL, vR, dt,
+                                   num_krylov_vecs: int = 10,
+                                   lanczos_impl: Optional[str] = None
+                                   ) -> torch.Tensor:
+    """One real-time TDVP sweep of a batch of complex stacks As_batch (B,
+    N, chi, d, chi) under one real MPO -- many quenches at once -- by the
+    algorithm of :func:`~tensornetwork_tpu_torch.models.tdvp.
+    tdvp_one_site_sweep_sc`.  ``dt``: a scalar or (B,) per-instance time
+    steps.  Where the JAX package vmaps the single-instance sweep, this is
+    one sweep over the batch axis: with ``"fused"`` (the default) every
+    site step and every bond step is one K2 launch for all B instances,
+    4N a sweep.  Returns the evolved batch."""
+    with highest_precision():
+        return _tdvp._one_site_sweep_sc(As_batch, Ws, vL, vR, dt,
+                                        num_krylov_vecs, None, lanczos_impl)

@@ -712,3 +712,83 @@ def test_gemm_chain_wgmma_route_matches_twin(cuda, M, K, N, P, reps):
     wmma = TK.gemm_chain(x, b, c, reps, route="wmma")
     assert TK.route_counts["gemm_chain_wmma"] == 1
     assert _rel(wmma.float(), ref.float()) < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# K2 at TDVP's shapes: the realified site (nt'=4, M'=6) and bond (nt'=2)
+# steps, and the real bond step of imaginary time (nt=1)
+# ---------------------------------------------------------------------------
+
+
+def _tdvp_operands(B, chi, d, M, real, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def herm():
+        a = rng.standard_normal((B, chi, M, chi)) + 1j * rng.standard_normal(
+            (B, chi, M, chi))
+        return (a + a.transpose(0, 3, 2, 1).conj()) / 2
+
+    L, R = herm(), herm()
+    x = rng.standard_normal((B, chi, d, chi)) + 1j * rng.standard_normal(
+        (B, chi, d, chi))
+    W = rng.standard_normal((M, M, d, d))
+    W = (W + W.transpose(1, 0, 3, 2)) / 2 if d > 1 else np.eye(M).reshape(
+        M, M, 1, 1)
+    if real:
+        return TK.prepare_operands(*(torch.as_tensor(
+            a.real, dtype=dtype, device=device) for a in (L, W, R, x)))
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    L, R, x = (torch.as_tensor(a, dtype=cdtype, device=device)
+               for a in (L, R, x))
+    return TK.realify_sandwich_operands(
+        L, torch.as_tensor(W, dtype=dtype, device=device), R, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["sc_site", "sc_bond", "real_bond"])
+def test_fused_lanczos_at_tdvp_shapes_matches_twin(cuda, dtype, case):
+    B, d, real = {"sc_site": (4, 2, False), "sc_bond": (4, 1, False),
+                  "real_bond": (1, 1, True)}[case]
+    ops = _tdvp_operands(B, 64, d, 3, real, dtype, cuda)
+    TK.reset_launch_counts()
+    V, ab = TK.fused_lanczos(*ops, 10)
+    assert TK.launch_counts["fused_lanczos"] == 1
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(*ops, 10)
+    assert _rel(ab, ab0) < TOL[dtype][1]
+    assert _rel(V, V0) < TOL[dtype][1]
+
+
+def _overlaps(A, B):
+    """<A|B> per instance of (b, N, chi, d, chi) stacks, identity
+    boundaries."""
+    A, B = A.to(torch.complex128), B.to(torch.complex128)
+    E = torch.eye(A.shape[2], dtype=A.dtype, device=A.device).expand(
+        A.shape[0], -1, -1)
+    for i in range(A.shape[1]):
+        E = torch.einsum("Bac,Basb,Bcsd->Bbd", E, A[:, i].conj(), B[:, i])
+    return E.diagonal(dim1=1, dim2=2).sum(-1)
+
+
+def test_batched_tdvp_sweep_on_the_card_matches_plain(cuda):
+    from tensornetwork_tpu_torch.parallel.batch import (
+        batched_tdvp_one_site_sweep_sc)
+    B, N, chi = 4, 8, 16
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32, device=cuda)
+    psi = tdmrg.random_mps_stack(3, B * N, chi, 2, dtype=torch.float32,
+                                 device=cuda).reshape(B, N, chi, 2, chi)
+    TK.reset_launch_counts()
+    got = batched_tdvp_one_site_sweep_sc(psi.to(torch.complex64), mpo.Ws,
+                                         mpo.vL, mpo.vR, 0.05,
+                                         num_krylov_vecs=10)
+    assert TK.launch_counts["fused_lanczos"] == 4 * N
+    ref = batched_tdvp_one_site_sweep_sc(psi.double().to(torch.complex128),
+                                         mpo.Ws.double(), mpo.vL.double(),
+                                         mpo.vR.double(), 0.05,
+                                         num_krylov_vecs=10,
+                                         lanczos_impl="plain")
+    assert TK.launch_counts["fused_lanczos"] == 4 * N
+    fid = _overlaps(got, ref).abs() / (_overlaps(got, got).real
+                                       * _overlaps(ref, ref).real).sqrt()
+    # one f32 sweep against complex128: f32 rounding over 4N local steps
+    assert float(fid.min()) > 1 - 1e-5
