@@ -18,7 +18,14 @@ exact diagonalisation.  TDVP: K2 at the three shapes TDVP gives it
 imaginary time); bench.py's batched real-time quench (B=64 chains at
 chi=64, complex64, dt=0.05; K2 on realified operands, 4N launches a
 sweep); N=10 against scipy's expm of the dense Hamiltonian; and
-imaginary time at chi=64.  Then the batched MPS transfer chain at bench.py's
+imaginary time at chi=64.  VUMPS on the infinite critical TFI chain
+(bench.py's probe and convergence run): K2 at the two shapes its AC and C
+solves give it (B=1, chi=64, m=25: nt=2 on <3,2>, nt=1 on <0,0>);
+vumps_iteration's rate from a random chi=64 f32 state; vumps() from random
+to a gauge error of 1e-4 in f32 and 1e-5 in f64 against the exact energy
+density, and the f64 state's correlation length; then iTDVP of that state
+in complex128 (no kernel), stationary in energy and <Z>.  Then the batched
+MPS transfer chain at bench.py's
 shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
 "resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
 64 f32), and the chained-GEMM probe's 11-shape ladder (route "wgmma",
@@ -154,6 +161,31 @@ EXACT_TOLS = (("complex128", 1e-8, 1e-8), ("complex64", 1e-4, None))
 # 10 sweeps of dt=0.1 from a random state; the f64 energy may rise by at
 # most IMAG_RISE a sweep and ends above REFERENCE_ENERGY - IMAG_RISE
 IMAG_SWEEPS, IMAG_DT, IMAG_RISE = 10, 0.1, 1e-5
+# VUMPS on the infinite critical TFI chain (bench.py:140-173): W the bulk
+# site N/2 of FiniteTFI(1, 1, N=32), chi=64, d=2, M=3, m=25 Krylov vectors;
+# the AC and C solves run K2 at B=1 (AC nt=2, the compile-time instance
+# <3,2>; C nt=1 with identity couplings, the run-time <0,0>).
+VUMPS_CHI, VUMPS_KRYLOV = 64, 25
+VUMPS_K2_SHAPES = (("ac", D), ("c", 1))
+# The probe: vumps_iteration with its defaults (4 Lanczos passes a solve,
+# GMRES(30) x 2, cold fixed-point seeds), 1 warm + 10 + 8 timed iterations.
+# After 19 iterations from random the energy need not be converged: the
+# state must be variational to f32 noise and within VUMPS_PROBE_DE of
+# -4/pi.
+VUMPS_PROBE = (1, 10, 8)
+VUMPS_PROBE_DE = 1e-2
+# The convergence runs from random: bench.py:160-171's f32 run (gauge
+# error below 1e-4 within 80 iterations, |e - e_exact| below 1e-5), and
+# in f64 the bars of tests/test_vumps.py:161-180 (gauge error below 1e-5
+# in fewer than 40 iterations, no rise above 2.5x after the third,
+# |e - e_exact| below 1e-6).
+VUMPS_F32 = dict(num_iterations=80, tol=1e-4, gmres_m=40, gmres_restarts=8)
+VUMPS_F32_DE = 1e-5
+VUMPS_F64 = dict(num_iterations=60, tol=1e-5, gmres_m=40, gmres_restarts=8)
+VUMPS_F64_ITERS, VUMPS_F64_DE, VUMPS_TAIL_RISE = 40, 1e-6, 2.5
+# iTDVP of the f64 ground state in complex128, t=0.3 in 6 steps: energy and
+# <Z> stationary (tests/test_vumps.py:88-103's bars)
+ITDVP_T, ITDVP_STEPS, ITDVP_DE, ITDVP_DZ = 0.3, 6, 1e-6, 1e-3
 
 
 def emit(**kw):
@@ -250,8 +282,9 @@ def k2_instance(M, nt):
     """The f32 template instance tn_fused_lanczos_f32 dispatches (M, nt)
     to (csrc/fused_lanczos.cu): compile-time <3,2> and <3,4>, else the
     run-time <0,0>."""
-    return f"launch_tc<{M},{nt}>" if (M, nt) in ((3, 2), (3, 4)) else (
-        "launch_tc<0,0>")
+    import torch
+    from tensornetwork_tpu_torch.ops import kernels as K
+    return "launch_" + K.fused_lanczos_instance(M, nt, torch.float32)
 
 
 def k2_work(B, chi, nt, M, m):
@@ -1627,6 +1660,200 @@ def tdvp_imaginary_phase(torch):
           f"imaginary-time energies {energies}")
 
 
+def k2_vumps_phase(torch):
+    """K2 at the two shapes VUMPS gives it (VUMPS_K2_SHAPES: B=1, chi=64,
+    M=3, m=25), f32: against its twin and an f64 run of the twin, timed by
+    CUDA events beside the twin and the 3xTF32 bound, with the template
+    instance that ran."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    m = VUMPS_KRYLOV
+    for seed, (case, nt) in enumerate(VUMPS_K2_SHAPES):
+        ops = tdvp_k2_operands(torch, 1, VUMPS_CHI, nt, M, True, 200 + seed)
+        with highest_precision():
+            V, ab = K.fused_lanczos(*ops, m)
+            V0, ab0 = K.fused_lanczos_plain(*ops, m)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(V).all() and torch.isfinite(ab).all()),
+                  f"K2 (vumps {case}) output not finite")
+            rel_ab, rel_V = max_rel(ab, ab0), max_rel(V, V0)
+            f64 = lanczos_f64_errors(torch, ops, V, ab, V0, ab0, m)
+            ms = cuda_ms(torch, lambda: K.fused_lanczos(*ops, m), 10)
+            plain_ms = cuda_ms(torch, lambda: K.fused_lanczos_plain(*ops, m),
+                               3)
+        flops, nbytes = k2_work(1, VUMPS_CHI, nt, M, m)
+        bound_tc_ms, bound_by = bound_tc(flops, nbytes)
+        emit(phase="k2_vumps", case=case, shape=[1, VUMPS_CHI, nt, M, m],
+             instance=k2_instance(M, nt), max_rel_err_ab=rel_ab,
+             max_rel_err_V=rel_V, f64_rel_err=f64, ms=ms, plain_ms=plain_ms,
+             bound_tc_ms=bound_tc_ms, bound_by=bound_by,
+             tflops_per_s=flops / ms / 1e9)
+        check(f64["kernel_ab"] <= TDVP_K2_F64X * f64["twin_ab"]
+              and f64["kernel_V"] <= TDVP_K2_F64X * f64["twin_V"],
+              f"K2 (vumps {case}) against f64 beyond {TDVP_K2_F64X}x its "
+              f"f32 twin: {f64}")
+        del V, ab, V0, ab0, ops
+
+
+def vumps_counts():
+    """K2 launches by instance, the AC and C Ritz passes and the host
+    checks of their residuals, GMRES restarts and GMRES host checks since
+    the last reset_vumps_counts()."""
+    from tensornetwork_tpu_torch.models import vumps as V
+    from tensornetwork_tpu_torch.ops import kernels as K
+    from tensornetwork_tpu_torch.ops import krylov
+    return dict(k2=K.launch_counts["fused_lanczos"],
+                **{k[len("fused_lanczos_"):]: n
+                   for k, n in K.route_counts.items()
+                   if k.startswith("fused_lanczos_")},
+                **V.counts, **krylov.counts)
+
+
+def reset_vumps_counts():
+    from tensornetwork_tpu_torch.models import vumps as V
+    from tensornetwork_tpu_torch.ops import kernels as K
+    from tensornetwork_tpu_torch.ops import krylov
+    K.reset_launch_counts()
+    V.reset_counts()
+    krylov.reset_counts()
+
+
+def per_iteration(before, after, n):
+    return {k: (after[k] - before[k]) / n for k in after}
+
+
+def vumps_w(torch, dtype):
+    from tensornetwork_tpu_torch import FiniteTFI
+    return FiniteTFI(1.0, 1.0, N=N, dtype=dtype).Ws[N // 2]
+
+
+def vumps_probe_phase(torch):
+    """bench.py's VUMPS probe on the card: vumps_iteration with its
+    defaults from a random f32 chi=64 state, 1 warm + 10 + 8 timed
+    iterations (CUDA events, and the host's clock to the last sync), the
+    device's busy time of one more, traced; per iteration the K2 launches
+    by instance, the GMRES restarts and the host checks."""
+    from tensornetwork_tpu_torch.models import vumps as V
+    W = vumps_w(torch, torch.float32)
+    lams = V.mpo_diagonal_coefficients(W)
+    state = V.random_vumps_state(4, VUMPS_CHI, D, torch.float32, device=DEV)
+    warm, settle, timed = VUMPS_PROBE
+    for _ in range(warm + settle):
+        state, e, err, _, _, _ = V.vumps_iteration(state, W, lams)
+    float(e)
+    before = vumps_counts()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(timed):
+        state, e, err, _, _, _ = V.vumps_iteration(state, W, lams)
+    ev1.record()
+    e, err = float(e), float(err)       # synchronises
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    device_ms = ev0.elapsed_time(ev1)
+    counts = per_iteration(before, vumps_counts(), timed)
+    iteration_ms = 1e3 * host_s / timed
+    t1 = time.perf_counter()
+    busy_ms, top = device_busy_ms(
+        torch, lambda: V.vumps_iteration(state, W, lams), top=DEVICE_TOP)
+    de = e + 4 / np.pi
+    emit(phase="vumps_probe", chi=VUMPS_CHI, iterations=list(VUMPS_PROBE),
+         iterations_per_s=timed / host_s, iteration_ms=iteration_ms,
+         event_ms_per_iteration=device_ms / timed, e=e,
+         delta_e_vs_minus_4_over_pi=de, gauge_error=err,
+         per_iteration=counts, device_busy_ms=busy_ms,
+         device_idle_share=1 - busy_ms / iteration_ms, device_top=top,
+         profile_seconds=time.perf_counter() - t1)
+    check(bool(all(torch.isfinite(x).all() for x in state))
+          and np.isfinite(e), "VUMPS probe state not finite")
+    check(-VUMPS_F32_DE <= de <= VUMPS_PROBE_DE,
+          f"VUMPS probe energy {e}: {de} from -4/pi")
+
+
+def vumps_converge_phase(torch, dtype):
+    """bench.py's VUMPS convergence run (f32) or the JAX package's slow
+    test (f64): vumps() from random to the gauge-error target, with its
+    iterations, seconds, per-iteration counts and energy error."""
+    from tensornetwork_tpu_torch.models import vumps as V
+    f32 = dtype == torch.float32
+    kw = VUMPS_F32 if f32 else VUMPS_F64
+    W = vumps_w(torch, dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = V.vumps(W, chi=VUMPS_CHI, dtype=dtype, seed=0, **kw)
+    seconds = time.perf_counter() - t0
+    errs = res.gradient_norms
+    de = res.energy - V.tfi_exact_energy_density(-1.0, -1.0)
+    counts = vumps_counts()
+    out = dict(phase="vumps_converge", dtype=str(dtype)[6:], chi=VUMPS_CHI,
+               iterations=len(errs), seconds=seconds,
+               iterations_per_s=len(errs) / seconds, gauge_error=errs[-1],
+               gauge_errors=errs, delta_e=de,
+               per_iteration=per_iteration(dict.fromkeys(counts, 0), counts,
+                                           len(errs)), **kw)
+    check(bool(all(torch.isfinite(x).all() for x in res.state)),
+          f"VUMPS ({dtype}) state not finite")
+    if f32:
+        emit(**out)
+        check(errs[-1] < kw["tol"] and abs(de) < VUMPS_F32_DE,
+              f"VUMPS f32: gauge error {errs[-1]} after {len(errs)} "
+              f"iterations, delta e {de}")
+        return res
+    t1 = time.perf_counter()
+    xi = V.correlation_length(res.state.AL)
+    emit(**out, correlation_length=xi,
+         correlation_length_s=time.perf_counter() - t1)
+    tail = errs[3:]
+    check(errs[-1] < kw["tol"] and len(errs) < VUMPS_F64_ITERS,
+          f"VUMPS f64: gauge error {errs[-1]} after {len(errs)} iterations")
+    check(all(b < VUMPS_TAIL_RISE * a for a, b in zip(tail, tail[1:])),
+          f"VUMPS f64: the gauge error rose in the tail: {tail}")
+    check(abs(de) < VUMPS_F64_DE, f"VUMPS f64: delta e {de}")
+    check(bool(np.isfinite(xi)) and xi > 1, f"correlation length {xi}")
+    return res
+
+
+def check_vumps_launches(counts, dtype, what):
+    """Every AC pass was one K2 launch on <3,2> (f32) and every C pass one
+    on <0,0>; in f64 each on the SIMT kernel."""
+    if dtype == "float32":
+        ok = (counts["tc<3,2>"] == counts["ac_passes"] > 0
+              and counts["tc<0,0>"] == counts["c_passes"] > 0
+              and counts["k2"] == counts["ac_passes"] + counts["c_passes"])
+    else:
+        ok = counts["simt"] == counts["k2"] == (counts["ac_passes"]
+                                               + counts["c_passes"]) > 0
+    check(ok, f"K2 on the VUMPS path ({what}, {dtype}): {counts}")
+
+
+def itdvp_phase(torch, state64, W64):
+    """iTDVP of the f64 VUMPS ground state taken to complex128: t=0.3 in 6
+    real-time steps (Lanczos exponentials, no kernel: K2 takes real
+    states); the energy and <Z> stay put."""
+    from tensornetwork_tpu_torch.models import vumps as V
+    st = V.VUMPSState(*(x.to(torch.complex128) for x in state64))
+    Z = np.diag([1.0, -1.0])
+
+    def z(s):
+        return V.uniform_expectation_1site(s, Z).real
+
+    m0 = z(st)
+    t0 = time.perf_counter()
+    st, es, obs = V.itdvp(st, W64, t=ITDVP_T, num_steps=ITDVP_STEPS,
+                          observable=z)
+    seconds = time.perf_counter() - t0
+    de = float(np.max(np.abs(np.array(es) - es[0])))
+    dz = float(np.max(np.abs(np.array(obs) - m0)))
+    emit(phase="itdvp", chi=VUMPS_CHI, t=ITDVP_T, steps=ITDVP_STEPS,
+         seconds=seconds, energy_drift_max=de, z_drift_max=dz, z0=m0)
+    check(bool(all(torch.isfinite(torch.view_as_real(x)).all() for x in st)),
+          "iTDVP state not finite")
+    check(de < ITDVP_DE and dz < ITDVP_DZ,
+          f"iTDVP of the ground state: energy drift {de}, <Z> drift {dz}")
+
+
 def two_site_large_phase(torch, chi, tier, sweeps, matvec_ms):
     """Two-site sweeps of one TFI N=32 chain at bond dimension chi through
     the tier two_site_tier picks, from a random state.  The launch counts
@@ -1865,6 +2092,28 @@ def main():
         emit(phase=tdvp_path.__name__[:-6] + "_launches", **counts)
         check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
         launches["fused_lanczos"] += counts["fused_lanczos"]
+
+    # VUMPS: K2 at its shapes, then its paths, each with its own counts
+    k2_vumps_phase(torch)
+    reset_vumps_counts()
+    vumps_probe_phase(torch)
+    counts = vumps_counts()
+    emit(phase="vumps_probe_launches", **counts)
+    check_vumps_launches(counts, "float32", "probe")
+    launches["fused_lanczos"] += counts["k2"]
+    for dtype in (torch.float32, torch.float64):
+        reset_vumps_counts()
+        res = vumps_converge_phase(torch, dtype)
+        counts = vumps_counts()
+        emit(phase="vumps_converge_launches", dtype=str(dtype)[6:], **counts)
+        check_vumps_launches(counts, str(dtype)[6:], "convergence run")
+        launches["fused_lanczos"] += counts["k2"]
+    reset_vumps_counts()
+    itdvp_phase(torch, res.state, vumps_w(torch, torch.float64))
+    counts = vumps_counts()
+    emit(phase="itdvp_launches", **counts)
+    check(counts["k2"] == 0, f"K2 launched on a complex state: {counts}")
+    del res
 
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],

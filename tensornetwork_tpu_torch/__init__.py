@@ -3,7 +3,10 @@
 Ported so far: one- and two-site DMRG, single instance and batched, and
 TDVP time evolution (``models.tdvp``; batched real-time quenches in
 ``parallel.batch``), whose local evolutions run K2, the fused Lanczos, on
-realified complex operands.  The
+realified complex operands; and the infinite chain (``models.vumps``):
+VUMPS ground states, whose AC and C solves run K2, iTDVP, and the
+transfer-matrix correlation length on the restarted Arnoldi of
+``ops.krylov``.  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
 CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
@@ -21,12 +24,16 @@ from tensornetwork_tpu_torch.models.dmrg import (FiniteDMRG, SweepResult,
                                                  one_site_sweep,
                                                  random_mps_stack,
                                                  two_site_sweep)
-from tensornetwork_tpu_torch.models.mpo import (MPO, FiniteTFI, FiniteXXZ,
-                                               mpo_to_dense)
+from tensornetwork_tpu_torch.models.mpo import (MPO, FiniteFreeFermion2D,
+                                               FiniteTFI, FiniteXXZ,
+                                               InfiniteMPO, mpo_to_dense)
 from tensornetwork_tpu_torch.models.tdvp import (TDVP, tdvp_one_site_sweep,
                                                  tdvp_one_site_sweep_sc,
                                                  tdvp_two_site_sweep,
                                                  tdvp_two_site_sweep_sc)
+from tensornetwork_tpu_torch.models.vumps import (VUMPSResult, VUMPSState,
+                                                  correlation_length, itdvp,
+                                                  vumps, vumps_iteration)
 from tensornetwork_tpu_torch.ops.decompositions import (polar_complete,
                                                         subspace_truncate,
                                                         svd_masked)

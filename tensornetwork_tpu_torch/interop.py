@@ -16,6 +16,7 @@ import torch
 
 from tensornetwork_tpu_torch.config import Device, as_tensor
 from tensornetwork_tpu_torch.models.mpo import MPO
+from tensornetwork_tpu_torch.models.vumps import VUMPSState
 
 
 def _tensor(a, device: Optional[Device], dtype: Optional[torch.dtype]):
@@ -47,3 +48,11 @@ def mps_from_split_complex(re, im, *, device: Optional[Device] = None,
     float32 ones, unless ``dtype`` is given."""
     re, im = np.asarray(re), np.asarray(im)
     return _tensor(re + 1j * im.astype(re.dtype), device, dtype)
+
+
+def vumps_state_from_numpy(AL, AR, C, AC, *, device: Optional[Device] = None,
+                           dtype: Optional[torch.dtype] = None) -> VUMPSState:
+    """A :class:`VUMPSState` from the four arrays of the JAX package's
+    ``VUMPSState`` (``np.asarray`` of each), so that both packages iterate
+    from the same uniform MPS."""
+    return VUMPSState(*(_tensor(a, device, dtype) for a in (AL, AR, C, AC)))

@@ -42,6 +42,18 @@ class MPO:
     def phys_dim(self) -> int:
         return self.Ws.shape[3]
 
+    def roll(self, n: int) -> "MPO":
+        """The sites shifted cyclically by ``n`` (site n comes first), as
+        an MPO of this one's class."""
+        return type(self)(torch.roll(self.Ws, -n, dims=0), self.vL, self.vR)
+
+
+class InfiniteMPO(MPO):
+    """A unit-cell MPO: the same uniform stack, read as the repeating cell
+    of an infinite chain (counterpart of
+    ``tensornetwork_tpu.models.mpo.InfiniteMPO``); :meth:`roll` shifts the
+    cell."""
+
 
 def _paulis():
     X = np.array([[0.0, 1.0], [1.0, 0.0]])
@@ -133,6 +145,71 @@ def FiniteXXZ(Jz: Union[float, Sequence[float]],
     vL[M - 1] = 1.0
     vR = np.zeros(M)
     vR[0] = 1.0
+    return MPO(*(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (Ws, vL, vR)))
+
+
+def FiniteFreeFermion2D(t1: float, t2: float, mu: float, N1: int, N2: int,
+                        dtype: Optional[torch.dtype] = None,
+                        device: Optional[Device] = None) -> MPO:
+    """Free fermions on an N1 x N2 cylinder, snake-ordered into a chain:
+    H = -t1 sum_<ij>_row c+_i c_j - t2 sum_<ij>_col c+_i c_j + h.c. - mu
+    sum n_i, with Jordan-Wigner strings along the snake (even rows run
+    right, odd rows left).  A hopping of range r starts in a channel that
+    counts the r sites to its end, so M = 2 + 2 max(r).  Counterpart of
+    ``tensornetwork_tpu.models.mpo.FiniteFreeFermion2D``."""
+    dtype = DEFAULT_DTYPE if dtype is None else dtype
+    device = default_device(device)
+    N = N1 * N2
+    d = 2
+    # occupation basis |0>, |1>
+    sp = np.array([[0.0, 0.0], [1.0, 0.0]])   # c-dagger at a site
+    sm = sp.T.copy()                          # c at a site
+    n = np.diag([0.0, 1.0])
+    Zjw = np.diag([1.0, -1.0])
+    I = np.eye(2)
+
+    def site(x, y):
+        return x * N2 + (y if x % 2 == 0 else N2 - 1 - y)
+
+    bonds = []  # (i, j, amplitude) with i < j in chain order
+    for x in range(N1):
+        for y in range(N2):
+            if y + 1 < N2:
+                i, j = sorted((site(x, y), site(x, y + 1)))
+                bonds.append((i, j, -t2))
+            if x + 1 < N1:
+                i, j = sorted((site(x, y), site(x + 1, y)))
+                bonds.append((i, j, -t1))
+    max_range = max(j - i for i, j, _ in bonds)
+    # channel (string type, sites k to the end): a term amp (sp_i Z..Z sm_j
+    # + sm_i Z..Z sp_j) starts at i, passes through Zjw and ends at j
+    M = 2 + 2 * max_range
+    DONE, IDLE = 0, M - 1
+
+    def chan_a(k):  # started by sp
+        return k
+
+    def chan_b(k):  # started by sm
+        return max_range + k
+
+    Ws = np.zeros((N, M, M, d, d))
+    for s in range(N):
+        Ws[s, DONE, DONE] = I
+        Ws[s, IDLE, IDLE] = I
+        Ws[s, IDLE, DONE] = -mu * n
+        for k in range(2, max_range + 1):
+            Ws[s, chan_a(k), chan_a(k - 1)] = Zjw
+            Ws[s, chan_b(k), chan_b(k - 1)] = Zjw
+        Ws[s, chan_a(1), DONE] = sm
+        Ws[s, chan_b(1), DONE] = sp
+    for i, j, amp in bonds:
+        Ws[i, IDLE, chan_a(j - i)] += amp * sp
+        Ws[i, IDLE, chan_b(j - i)] += amp * sm
+    vL = np.zeros(M)
+    vL[IDLE] = 1.0
+    vR = np.zeros(M)
+    vR[DONE] = 1.0
     return MPO(*(torch.as_tensor(a, dtype=dtype, device=device)
                  for a in (Ws, vL, vR)))
 

@@ -3,7 +3,8 @@
 Counterpart of the gauge and truncation part of
 :mod:`tensornetwork_tpu.ops.decompositions`: ``ns_polar``, ``cholqr2``,
 ``svd_masked`` and ``subspace_truncate``; Householder QR is
-``torch.linalg.qr``.  Also ``polar_complete``, the full-isometry polar
+``torch.linalg.qr`` and the SVD ``torch.linalg.svd``, both through
+:func:`lapack_factor`.  Also ``polar_complete``, the full-isometry polar
 split of the TDVP gauge shifts (the JAX package's ``ns_polar_complete``
 and its split-complex ``polar_complete`` in one).  Every function works on
 stacks of matrices (leading batch dimensions); ``ns_polar``,
@@ -120,13 +121,45 @@ def cholqr2(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q2, L2.mT @ L1.mT
 
 
+def lapack_factor(fn, m: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``fn(m)``, a LAPACK-style factorization returning a tuple of tensors
+    (``torch.linalg.qr``, ``torch.linalg.svd``), by one rule of device and
+    dtype: a complex64 tensor on the CPU is factored in complex128 and each
+    factor is cast back (complex factors to complex64, real ones such as
+    the singular values to float32).  Everything else is factored as it
+    is; on the card cuSOLVER stays in complex64.
+
+    The CPU rule is not a retry: PyTorch's CPU LAPACK (torch 2.13) returns
+    NaN from complex64 Householder QR, and fails to converge in the
+    complex64 SVD, on some rank-deficient panels (a few random nonzero
+    rows, as a product state padded to chi gives), where complex128 and the
+    JAX package's complex64 are finite."""
+    if m.dtype == torch.complex64 and m.device.type == "cpu":
+        return tuple(f.to(torch.complex64 if f.is_complex() else torch.float32)
+                     for f in fn(m.to(torch.complex128)))
+    return fn(m)
+
+
+def thin_svd(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``torch.linalg.svd(m, full_matrices=False)`` of a stack of matrices
+    through :func:`lapack_factor`.  On the card the SVD is cuSOLVER's
+    QR-iteration routine (gesvd): the default Jacobi routine's f32 singular
+    vectors are orthonormal only to its tolerance, which sets the floor of
+    anything built from them (a two-site sweep's f32 Ritz energies, VUMPS's
+    gauge error)."""
+    kw = {"driver": "gesvd"} if m.is_cuda else {}
+    return lapack_factor(
+        functools.partial(torch.linalg.svd, full_matrices=False, **kw), m)
+
+
 def qr(m: torch.Tensor, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """An isometric/rest split m = Q.R of a stack of tall matrices:
-    ``"householder"`` (triangular R), ``"cholesky"`` (:func:`cholqr2`),
-    ``"polar"`` (:func:`ns_polar`) or ``"polar_complete"``
-    (:func:`polar_complete`)."""
+    ``"householder"`` (triangular R, ``torch.linalg.qr`` through
+    :func:`lapack_factor`), ``"cholesky"`` (:func:`cholqr2`), ``"polar"``
+    (:func:`ns_polar`) or ``"polar_complete"`` (:func:`polar_complete`)."""
     if impl == "householder":
-        return torch.linalg.qr(m)
+        return lapack_factor(torch.linalg.qr, m)
     if impl == "cholesky":
         return cholqr2(m)
     if impl == "polar":
@@ -159,14 +192,13 @@ def svd_masked(matrix: torch.Tensor, max_singular_values: int,
     ``max_truncation_error`` (times ``s[0]`` when ``relative``).
     Counterpart of the JAX package's ``svd_masked``.
 
-    On the card the SVD is cuSOLVER's QR-iteration routine (gesvd): the
-    default Jacobi routine's f32 singular vectors are orthonormal only to
-    its tolerance, and a two-site sweep that builds its environments from
-    them reported f32 Ritz energies ~1e-4 too high (measured on an H100 at
-    N=10, chi=16).  Complex matrices give complex ``u``/``vh`` and real ``s`` (the JAX
-    package's ``svd_masked_sc``)."""
-    kw = {"driver": "gesvd"} if matrix.is_cuda else {}
-    u, s, vh = torch.linalg.svd(matrix, full_matrices=False, **kw)
+    The SVD is :func:`thin_svd`: on the card cuSOLVER's gesvd (with the
+    Jacobi routine, a two-site sweep that builds its environments from the
+    f32 singular vectors reported f32 Ritz energies ~1e-4 too high,
+    measured on an H100 at N=10, chi=16); complex64 on the CPU in
+    complex128 (:func:`lapack_factor`).  Complex matrices give complex
+    ``u``/``vh`` and real ``s`` (the JAX package's ``svd_masked_sc``)."""
+    u, s, vh = thin_svd(matrix)
     k = min(int(max_singular_values), s.shape[-1])
     full_sq = (s * s).sum(-1)
     u_k, s_k, vh_k = u[..., :, :k], s[..., :k], vh[..., :k, :]

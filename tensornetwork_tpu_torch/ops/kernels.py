@@ -102,9 +102,14 @@ launch_counts: Dict[str, int] = {
     "transfer_chain": 0, "gemm_chain": 0}
 # the route of each kernel launch of transfer_chain (transfer_chain_route),
 # fused_gauge_env (gauge_env_route), gemm_chain (gemm_chain_route) and
-# heff_matvec (heff_matvec_route)
+# heff_matvec (heff_matvec_route), and the instance of each launch of
+# fused_lanczos (fused_lanczos_instance)
 route_counts: Dict[str, int] = {"heff_matvec_tc32": 0,
                                 "heff_matvec_simt": 0,
+                                "fused_lanczos_tc<3,2>": 0,
+                                "fused_lanczos_tc<3,4>": 0,
+                                "fused_lanczos_tc<0,0>": 0,
+                                "fused_lanczos_simt": 0,
                                 "transfer_chain_resident": 0,
                                 "transfer_chain_tiled": 0,
                                 "fused_gauge_env_resident": 0,
@@ -582,6 +587,16 @@ def fused_lanczos_plain(Lt, W, Rt, x0, num_krylov_vecs: int,
     return _lanczos_recurrence(matvec, x0, num_krylov_vecs, delta)
 
 
+def fused_lanczos_instance(M: int, nt: int, dtype: torch.dtype) -> str:
+    """The kernel instance ``tn_fused_lanczos`` runs (M, nt) on
+    (``csrc/fused_lanczos.cu``): in f32 the 3xTF32 kernel compiled for
+    (M, nt) = (3, 2) or (3, 4), ``"tc<3,2>"``/``"tc<3,4>"``, else its
+    run-time instance ``"tc<0,0>"``; in f64 the SIMT kernel, ``"simt"``."""
+    if dtype != torch.float32:
+        return "simt"
+    return f"tc<{M},{nt}>" if (M, nt) in ((3, 2), (3, 4)) else "tc<0,0>"
+
+
 def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
                   delta: float = 1e-8):
     """Whole Lanczos factorization of every instance on kernel-layout
@@ -607,6 +622,8 @@ def fused_lanczos(Lt, W, Rt, x0, num_krylov_vecs: int,
             x0.data_ptr(), V.data_ptr(), ab.data_ptr(), P.data_ptr(),
             w.data_ptr(), B, chi, d, M, m, float(delta))
     launch_counts["fused_lanczos"] += 1
+    route_counts["fused_lanczos_"
+                 + fused_lanczos_instance(M, d, x0.dtype)] += 1
     return V, ab
 
 

@@ -1,21 +1,51 @@
-"""Lanczos eigensolver, batched over a leading axis.
+"""Krylov solvers: Lanczos batched over a leading axis; Arnoldi, the
+implicitly restarted eigensolvers and GMRES on one operator.
 
-Counterpart of the Lanczos part of :mod:`tensornetwork_tpu.ops.krylov`:
-the same static iteration counts, the same invariant-subspace masks,
+Counterpart of :mod:`tensornetwork_tpu.ops.krylov`.  The Lanczos part
+keeps the same static iteration counts, the same invariant-subspace masks,
 ``delta`` and +1e10 sentinels, written as a Python loop over the Krylov
 steps with the batch as the leading dimension of every tensor.  This plain
 Lanczos is also the oracle of the fused-Lanczos kernel.  The exponential
 ``exp(coeff * A) v`` (:func:`expm_multiply_lanczos`) takes real or complex
 states; the JAX package's split-complex forms (``_sc``) take complex
 tensors here, which the card has natively.
+
+The rest keeps the JAX package's unbatched signatures (``matvec`` maps a
+state of ``initial_state``'s shape to the same): :func:`arnoldi_factorization`,
+:func:`eigs` (implicitly restarted, :func:`iram`, or explicit restarts),
+:func:`eigsh`, :func:`ir_lanczos` and :func:`gmres` / :func:`gmres_kernel`.
+The JAX package runs each restart loop inside one compiled ``while_loop``;
+here the loop is Python, and each restart ends in one host check of its
+convergence test (counted in :data:`counts`).  The small eigenproblems of
+the restarts come from ``torch.linalg.eig``/``eigh`` (the TPU lacked a
+nonsymmetric eig and took shifts from a real double-shift QR iteration);
+the selection, the residual test and the dead-row handling are the JAX
+package's.  GMRES builds the (m+1) x m Hessenberg matrix over the m
+Arnoldi steps and solves its least-squares problem once per restart by a
+QR on the device, where the JAX package rotates each new column by Givens
+rotations in a loop over all m rows.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from tensornetwork_tpu_torch.ops.decompositions import lapack_factor
+
 LARGE = 1e10  # diagonal sentinel of a dead Lanczos step
+
+# Since the last reset_counts(): GMRES restarts, and the host checks (one
+# device-to-host sync each) that end a restart loop -- GMRES's residual,
+# the restarted Arnoldi's convergence test and the VUMPS Ritz residual.
+counts = {"gmres_restarts": 0, "host_checks": 0}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
 
 
 def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -264,3 +294,383 @@ def expm_multiply_lanczos_sc(matvec: Callable, v: torch.Tensor, coeff,
     there, or a (B,) tensor of per-instance coefficients."""
     return _expm_multiply(lanczos_factorization_sc, matvec, v, coeff,
                           num_krylov_vecs, delta)
+
+
+# ---------------------------------------------------------------------------
+# Arnoldi and the implicitly restarted eigensolvers (one operator)
+# ---------------------------------------------------------------------------
+
+
+def _flat(matvec: Callable, shape) -> Callable:
+    return lambda x: matvec(x.reshape(shape)).reshape(-1)
+
+
+def _normalized_or_zero(w: torch.Tensor, wnorm: torch.Tensor,
+                        delta: float) -> torch.Tensor:
+    alive = wnorm > delta
+    return torch.where(alive, w / torch.where(alive, wnorm, 1.0),
+                       torch.zeros_like(w))
+
+
+def arnoldi_factorization(matvec: Callable, v0: Optional[torch.Tensor],
+                          num_krylov_vecs: int, delta: float = 1e-8,
+                          V0: Optional[torch.Tensor] = None,
+                          H0: Optional[torch.Tensor] = None,
+                          start: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``m``-step Arnoldi on flat states: returns ``(V, H)`` with ``V``
+    (m+1, n) orthonormal rows and ``H`` (m+1, m) upper Hessenberg.  Each
+    step orthogonalises against rows <= j twice (classical Gram-Schmidt);
+    a residual of norm <= ``delta`` leaves a zero row.
+
+    Warm start (implicit restarts): ``V0``/``H0`` hold a valid
+    ``start``-step factorization with ``V0[start]`` the normalised residual
+    and ``H0[start, start-1]`` its norm; they are copied, not changed.
+    Counterpart of the JAX package's ``arnoldi_factorization``."""
+    m = num_krylov_vecs
+    if V0 is None:
+        v = v0.reshape(-1)
+        V = torch.zeros((m + 1, v.numel()), dtype=v.dtype, device=v.device)
+        V[0] = _normalized_or_zero(v, torch.linalg.vector_norm(v), delta)
+        H = torch.zeros((m + 1, m), dtype=v.dtype, device=v.device)
+        start = 0
+    else:
+        V, H = V0.clone(), H0.clone()
+    for j in range(start, m):
+        w = matvec(V[j])
+        Vj = V[:j + 1]
+        h = torch.conj(Vj) @ w
+        w = w - h @ Vj
+        h2 = torch.conj(Vj) @ w
+        w = w - h2 @ Vj
+        wnorm = torch.linalg.vector_norm(w)
+        H[:, j] = 0
+        H[:j + 1, j] = h + h2
+        H[j + 1, j] = wnorm
+        V[j + 1] = _normalized_or_zero(w, wnorm, delta)
+    return V, H
+
+
+def _eig_sort_key(re, im, which: str):
+    """Relevance key (larger = more wanted) of eigenvalues (re, im), for
+    torch tensors and numpy arrays alike."""
+    if which == "LM":
+        return re * re + im * im
+    if which in ("LR", "LA"):
+        return re
+    if which == "SM":
+        return -(re * re + im * im)
+    if which in ("SR", "SA"):
+        return -re
+    raise ValueError(f"which = {which!r} not supported")
+
+
+def _host_order(evals: np.ndarray, which: str) -> np.ndarray:
+    """Indices of numpy eigenvalues, most wanted first."""
+    return np.argsort(-_eig_sort_key(np.real(evals), np.imag(evals), which),
+                      kind="stable")
+
+
+def _small_eig(Hm: torch.Tensor, hermitian: bool):
+    """(re, im, lasts) of the m x m projection: its eigenvalues and the
+    |last components| of its unit eigenvectors (the Ritz residual of
+    (lambda, V y) is beta_m |e_m^T y|)."""
+    if hermitian:
+        ev, evec = torch.linalg.eigh((Hm + Hm.mH) / 2)
+        return ev, torch.zeros_like(ev), evec[-1, :].abs()
+    ev, evec = torch.linalg.eig(Hm)
+    return ev.real, ev.imag, evec[-1, :].abs()
+
+
+def _shifted_qr(Vm: torch.Tensor, Hm: torch.Tensor, fm: torch.Tensor,
+                shifts_re: List[float], shifts_im: List[float], k: int):
+    """Compress an m-step factorization to ``k`` steps by applying the
+    unwanted eigenvalues as QR shifts.  A real dtype applies a
+    complex-conjugate pair (sr +- i si, the next slot its partner) as one
+    double shift through the real polynomial H^2 - 2 sr H + |s|^2; a pair
+    split by the last slot falls back to a single real shift at sr.  A
+    complex dtype applies single complex shifts.  As the JAX package's
+    ``_shifted_qr``, which computes both forms and selects."""
+    m = Hm.shape[0]
+    eye = torch.eye(m, dtype=Hm.dtype, device=Hm.device)
+    q = torch.zeros((m,), dtype=Hm.dtype, device=Hm.device)
+    q[-1] = 1.0
+    p = len(shifts_re)
+    skip = False
+    for i, (sr, si) in enumerate(zip(shifts_re, shifts_im)):
+        if skip:            # the partner of the last double shift
+            skip = False
+            continue
+        if Hm.is_complex():
+            shift = complex(sr, si)
+            Q, R = lapack_factor(torch.linalg.qr, Hm - shift * eye)
+            Hm = R @ Q + shift * eye
+        elif si != 0 and i < p - 1:
+            Q, _ = lapack_factor(torch.linalg.qr, Hm @ Hm - (2 * sr) * Hm
+                                 + (sr * sr + si * si) * eye)
+            Hm = Q.T @ Hm @ Q
+            skip = True
+        else:
+            Q, R = lapack_factor(torch.linalg.qr, Hm - sr * eye)
+            Hm = R @ Q + sr * eye
+        Vm = Q.T @ Vm
+        q = q @ Q
+    fk = Vm[k] * Hm[k, k - 1] + fm * q[k - 1]
+    return Vm, Hm, fk
+
+
+def _restarted_arnoldi_engine(mv: Callable, v0: torch.Tensor, m: int,
+                              numeig: int, which: str, maxiter: int,
+                              tol: float, hermitian: bool,
+                              delta: float = 1e-8):
+    """Implicitly restarted Arnoldi (or Lanczos, ``hermitian``) on flat
+    states: returns the final ``(V, H, iterations, converged)``.
+
+    Each pass checks the Ritz residuals of the current m-step
+    factorization, ``beta_m |e_m^T y| < max(eps |H_m|, |lambda| tol)``
+    for the ``numeig`` wanted pairs (one host check); if they fail, it
+    applies the unwanted Ritz values as shifts (:func:`_shifted_qr`) and
+    re-expands the compressed ``numeig``-step factorization to m steps.
+    At most ``maxiter - 1`` passes, as the JAX package's engine."""
+    rdtype = v0.real.dtype
+    eps = torch.finfo(rdtype).eps
+    V, H = arnoldi_factorization(mv, v0, m, delta)
+    it, conv = 1, False
+    while it < maxiter and not conv:
+        Hm = H[:m, :m]
+        re, im, lasts = _small_eig(Hm, hermitian)
+        order = torch.argsort(-_eig_sort_key(re, im, which), stable=True)
+        re, im, lasts = re[order], im[order], lasts[order]
+        w_abs = torch.sqrt(re[:numeig] ** 2 + im[:numeig] ** 2)
+        beta_m = H[m, m - 1].abs().to(rdtype)
+        thresh = torch.clamp(w_abs * tol,
+                             min=eps * torch.linalg.vector_norm(Hm))
+        ok = (beta_m * lasts[:numeig] < thresh).all()
+        # the test and the shifts in one transfer
+        host = torch.cat([ok[None], re[numeig:], im[numeig:]]).to(
+            torch.float64).tolist()
+        counts["host_checks"] += 1
+        conv = host[0] > 0
+        if not conv:
+            fm = V[m] * H[m, m - 1].real.to(rdtype)
+            p = m - numeig
+            Vk, Hk, fk = _shifted_qr(V[:m], Hm, fm, host[1:1 + p],
+                                     host[1 + p:], numeig)
+            beta = torch.linalg.vector_norm(fk)
+            Vn = torch.zeros_like(V)
+            Vn[:numeig] = Vk[:numeig]
+            Vn[numeig] = _normalized_or_zero(fk, beta, delta)
+            Hn = torch.zeros_like(H)
+            Hn[:numeig, :numeig] = Hk[:numeig, :numeig]
+            Hn[numeig, numeig - 1] = beta
+            V, H = arnoldi_factorization(mv, None, m, delta, V0=Vn, H0=Hn,
+                                         start=numeig)
+        it += 1
+    return V, H, it, conv
+
+
+def iram(matvec: Callable, initial_state: torch.Tensor,
+         num_krylov_vecs: int = 50, numeig: int = 6, which: str = "LM",
+         maxiter: int = 20, tol: float = 1e-8
+         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Implicitly restarted Arnoldi for a general operator: the
+    ``numeig`` wanted eigenpairs by ``which`` ('LM', 'LR', 'SM', 'SR').
+    Returns ``(evals (numeig,) complex, [eigenvectors, each of
+    initial_state's shape, unit norm, complex])`` on the state's device.
+
+    A real operator keeps one extra vector in the compressed block, so that
+    a complex-conjugate pair on the boundary is never split by the shifts.
+    The final m x m eigenproblem runs on the host (numpy), restricted to
+    the basis rows that are alive: an early invariant subspace leaves zero
+    rows, which would add spurious zero eigenvalues.  Counterpart of the
+    JAX package's ``iram``."""
+    shape = initial_state.shape
+    m = min(num_krylov_vecs, initial_state.numel())
+    numeig = min(numeig, m)
+    extra = 0 if initial_state.is_complex() else 1
+    k_eng = min(numeig + extra, max(m - 1, 1))
+    V, H, _, _ = _restarted_arnoldi_engine(
+        _flat(matvec, shape), initial_state.reshape(-1), m, k_eng, which,
+        maxiter, tol, hermitian=False)
+    Vh = V[:m]
+    Hm = H[:m, :m].cpu().numpy()
+    alive = (torch.linalg.vector_norm(Vh, dim=1) > 0.5).cpu().numpy()
+    p = int(alive.sum())
+    if p < m:
+        Hm, Vh = Hm[:p, :p], Vh[:p]
+        numeig = min(numeig, p)
+    evals, U = np.linalg.eig(Hm)
+    inds = _host_order(evals, which)[:numeig]
+    cdtype = torch.promote_types(Vh.dtype, torch.complex64)
+    vecs = (torch.as_tensor(U[:, inds], device=Vh.device).to(cdtype).T
+            @ Vh.to(cdtype))
+    norms = torch.linalg.vector_norm(vecs, dim=1, keepdim=True)
+    vecs = vecs / torch.where(norms > 0, norms, 1.0)
+    return (torch.as_tensor(evals[inds], device=Vh.device).to(cdtype),
+            [vecs[k].reshape(shape) for k in range(numeig)])
+
+
+def eigs(matvec: Callable, initial_state: torch.Tensor,
+         num_krylov_vecs: int = 50, numeig: int = 1, which: str = "LM",
+         maxiter: Optional[int] = None, tol: float = 1e-8,
+         method: str = "iram") -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Dominant eigenpairs of a general (non-Hermitian) operator.
+
+    ``method="iram"`` (default): :func:`iram` with ``maxiter`` 20.
+    ``method="explicit"``: ``maxiter`` (default 2) Arnoldi factorizations,
+    each restarted from the sum of the last one's ``numeig`` Ritz vectors
+    (not normalised), stopping early once ``|H[m, m-1]| < tol``; the
+    m x m eigenproblem of each on the host.  Counterpart of the JAX
+    package's ``eigs``."""
+    if method == "iram":
+        return iram(matvec, initial_state, num_krylov_vecs=num_krylov_vecs,
+                    numeig=numeig, which=which,
+                    maxiter=20 if maxiter is None else maxiter, tol=tol)
+    if method != "explicit":
+        raise ValueError(f"unknown method {method!r}")
+    if maxiter is None:
+        maxiter = 2
+    shape = initial_state.shape
+    mv = _flat(matvec, shape)
+    m = num_krylov_vecs
+    v0 = initial_state
+    for it in range(maxiter):
+        V, H = arnoldi_factorization(mv, v0, m)
+        Hh = H.cpu().numpy()
+        counts["host_checks"] += 1
+        evals, evecs = np.linalg.eig(Hh[:m, :m])
+        order = _host_order(evals, which)
+        evals, evecs = evals[order], evecs[:, order]
+        cdtype = torch.promote_types(V.dtype, torch.complex64)
+        ritz = torch.as_tensor(evecs[:, :numeig], device=V.device).to(cdtype)
+        vecs = ritz.T @ V[:m].to(cdtype)
+        if float(np.abs(Hh[m, m - 1])) < tol or it == maxiter - 1:
+            break
+        v0 = vecs.sum(0).reshape(shape)
+    return (torch.as_tensor(evals[:numeig], device=V.device).to(cdtype),
+            [vecs[k].reshape(shape) for k in range(numeig)])
+
+
+def eigsh(matvec: Callable, initial_state: torch.Tensor,
+          num_krylov_vecs: int = 50, numeig: int = 1, which: str = "SA",
+          **_) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Hermitian eigensolver on one operator: ``which='SA'`` (smallest
+    algebraic) is :func:`eigsh_lanczos`; ``'LA'`` and ``'LM'`` solve the
+    negated operator (so ``'LM'`` is the largest algebraic, as in the JAX
+    package's ``eigsh``).  Returns ``(evals (numeig,), [vectors])``."""
+    if which not in ("SA", "LA", "LM"):
+        raise ValueError(f"which = {which!r} not supported")
+    sign = 1.0 if which == "SA" else -1.0
+    evals, vecs = eigsh_lanczos(lambda x: sign * matvec(x[0])[None],
+                                initial_state[None], num_krylov_vecs, numeig)
+    return sign * evals[0], [vecs[0, k] for k in range(numeig)]
+
+
+def ir_lanczos(matvec: Callable, initial_state: torch.Tensor,
+               num_krylov_vecs: int = 20, numeig: int = 1,
+               which: str = "SA", maxiter: int = 20, tol: float = 1e-8
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Implicitly restarted Lanczos for a Hermitian operator: the restarted
+    engine with exact (``eigh``) shifts.  Returns ``(evals (numeig,),
+    evecs (numeig, *shape))`` sorted by ``which`` ('SA', 'LA', 'LM').  The
+    final eigenproblem sees dead (zero) basis rows only through a sentinel
+    diagonal that never wins the selection.  Counterpart of the JAX
+    package's ``ir_lanczos``."""
+    shape = initial_state.shape
+    m = min(num_krylov_vecs, initial_state.numel())
+    numeig = min(numeig, m)
+    sentinel = {"SA": 1e10, "SR": 1e10, "SM": 1e10,
+                "LA": -1e10, "LR": -1e10, "LM": 0.0}[which]
+    V, H, _, _ = _restarted_arnoldi_engine(
+        _flat(matvec, shape), initial_state.reshape(-1), m, numeig, which,
+        maxiter, tol, hermitian=True)
+    Hm = (H[:m, :m] + H[:m, :m].mH) / 2
+    alive = torch.linalg.vector_norm(V[:m], dim=1) > 0.5
+    Hm = Hm * (alive[:, None] & alive[None, :]).to(Hm.dtype)
+    Hm = Hm + torch.diag((~alive).to(Hm.dtype) * sentinel)
+    evals, evecs = torch.linalg.eigh(Hm)
+    inds = torch.argsort(-_eig_sort_key(evals, torch.zeros_like(evals),
+                                        which), stable=True)[:numeig]
+    vecs = evecs[:, inds].T @ V[:m]
+    norms = torch.linalg.vector_norm(vecs, dim=1, keepdim=True)
+    vecs = vecs / torch.where(norms > 0, norms, 1.0)
+    return evals[inds], vecs.reshape((numeig,) + tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# GMRES (one operator)
+# ---------------------------------------------------------------------------
+
+
+def _gmres_restart(mv: Callable, bf: torch.Tensor, x: torch.Tensor, m: int,
+                   delta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One GMRES(m) cycle from x: m Arnoldi steps (twice-orthogonalised,
+    a residual of norm <= ``delta`` leaves a zero row), then the
+    least-squares problem min |beta e1 - H y| by one complete QR of H on
+    the device.  A dead column (|R_jj| <= delta, after an invariant
+    subspace) gets a unit pivot: its basis row is zero, so it adds
+    nothing.  Returns (x + V y, |g_m|), g = Q^H beta e1: the residual norm
+    the JAX package's Givens recurrence carries (0 after a breakdown)."""
+    n = bf.shape[0]
+    r = bf - mv(x)
+    beta = torch.linalg.vector_norm(r)
+    V = torch.zeros((m + 1, n), dtype=bf.dtype, device=bf.device)
+    V[0] = r / torch.where(beta > delta, beta, 1.0)
+    H = torch.zeros((m + 1, m), dtype=bf.dtype, device=bf.device)
+    for j in range(m):
+        w = mv(V[j])
+        Vj = V[:j + 1]
+        h = torch.conj(Vj) @ w
+        w = w - h @ Vj
+        h2 = torch.conj(Vj) @ w
+        w = w - h2 @ Vj
+        wn = torch.linalg.vector_norm(w)
+        H[:j + 1, j] = h + h2
+        H[j + 1, j] = wn
+        V[j + 1] = _normalized_or_zero(w, wn, delta)
+    Q, R = lapack_factor(functools.partial(torch.linalg.qr, mode="complete"),
+                         H)
+    g = beta * torch.conj(Q[0])
+    Rm = R[:m, :m]
+    dead = torch.diagonal(Rm).abs() <= delta
+    Rm = Rm + torch.diag(dead.to(Rm.dtype))
+    y = torch.linalg.solve_triangular(Rm, g[:m, None], upper=True)[:, 0]
+    return x + y @ V[:m], g[m].abs()
+
+
+def gmres_kernel(mv: Callable, bf: torch.Tensor, x0f: torch.Tensor, m: int,
+                 maxiter: int, threshold, delta: float = 1e-12
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Restarted GMRES(m) on flat states: ``A x = bf`` from ``x0f``, at
+    most ``maxiter`` cycles (:func:`_gmres_restart`), ending as soon as the
+    residual norm is <= ``threshold`` (a number or a 0-dim tensor), which
+    is checked before every cycle, once on the host.  Returns ``(x, final
+    residual norm)``.  Counterpart of the JAX package's ``gmres_kernel``."""
+    x = x0f
+    rnorm = torch.linalg.vector_norm(bf - mv(x))
+    threshold = torch.as_tensor(threshold, dtype=rnorm.dtype,
+                                device=rnorm.device)
+    for _ in range(maxiter):
+        counts["host_checks"] += 1
+        r_now, thr = torch.stack([rnorm, threshold]).tolist()
+        if not r_now > thr:
+            break
+        x, rnorm = _gmres_restart(mv, bf, x, m, delta)
+        counts["gmres_restarts"] += 1
+    return x, rnorm
+
+
+def gmres(matvec: Callable, b: torch.Tensor,
+          x0: Optional[torch.Tensor] = None, tol: float = 1e-8,
+          atol: float = 0.0, num_krylov_vectors: int = 20,
+          maxiter: int = 1) -> Tuple[torch.Tensor, int]:
+    """Solve ``A x = b`` by restarted GMRES(m), m = ``num_krylov_vectors``,
+    to the residual ``max(tol |b|, atol)`` or ``maxiter`` restarts.
+    Returns ``(x, 0)``.  Counterpart of the JAX package's ``gmres``."""
+    shape = b.shape
+    bf = b.reshape(-1)
+    x0f = torch.zeros_like(bf) if x0 is None else x0.reshape(-1)
+    m = min(num_krylov_vectors, bf.numel())
+    threshold = torch.clamp(tol * torch.linalg.vector_norm(bf), min=atol)
+    x, _ = gmres_kernel(_flat(matvec, shape), bf, x0f, m, maxiter, threshold)
+    return x.reshape(shape), 0

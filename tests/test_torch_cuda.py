@@ -792,3 +792,106 @@ def test_batched_tdvp_sweep_on_the_card_matches_plain(cuda):
                                        * _overlaps(ref, ref).real).sqrt()
     # one f32 sweep against complex128: f32 rounding over 4N local steps
     assert float(fid.min()) > 1 - 1e-5
+
+
+# ---------------------------------------------------------------------------
+# VUMPS (K2 in the AC and C solves) and the complex64 gauges
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,d,instance", [("ac", 2, "tc<3,2>"),
+                                             ("c", 1, "tc<0,0>")])
+def test_fused_lanczos_at_vumps_shapes_matches_twin(cuda, dtype, case, d,
+                                                    instance):
+    # B=1, chi=64, M=3, m=25: the AC solve (nt=2) and the C solve (nt=1,
+    # identity couplings)
+    ops = _tdvp_operands(1, 64, d, 3, True, dtype, cuda, seed=11)
+    TK.reset_launch_counts()
+    V, ab = TK.fused_lanczos(*ops, 25)
+    assert TK.launch_counts["fused_lanczos"] == 1
+    want = instance if dtype == torch.float32 else "simt"
+    assert TK.route_counts["fused_lanczos_" + want] == 1
+    with highest_precision():
+        V0, ab0 = TK.fused_lanczos_plain(*ops, 25)
+        V64, ab64 = TK.fused_lanczos_plain(*(t.double() for t in ops), 25)
+    # m=25 plain steps carry the rounding further than m=10: hold the
+    # kernel to 3x its twin's error against f64 (chip_smoke's bar)
+    for got, twin, ref in ((ab, ab0, ab64), (V, V0, V64)):
+        err = float((got.double() - ref).norm() / ref.norm())
+        err0 = float((twin.double() - ref).norm() / ref.norm())
+        assert err <= 3 * err0 + 1e-13
+
+
+def _vumps_state(dtype, device, chi=16):
+    from tensornetwork_tpu_torch.models import vumps as TV
+    st = TV.random_vumps_state(3, chi, dtype=torch.float64, device="cpu")
+    return TV.VUMPSState(*(x.to(dtype=dtype, device=device) for x in st))
+
+
+@pytest.mark.parametrize("dtype,e_tol,fid_tol", [
+    (torch.float64, 1e-10, 1e-10), (torch.float32, 1e-5, 1e-5)])
+def test_vumps_iteration_on_the_card_matches_cpu(cuda, dtype, e_tol,
+                                                 fid_tol):
+    from tensornetwork_tpu_torch.models import vumps as TV
+    W = tmpo.FiniteTFI(-1.0, -0.8, N=3, dtype=dtype, device="cpu").Ws[1]
+    lams = TV.mpo_diagonal_coefficients(W)
+    TK.reset_launch_counts()
+    TV.reset_counts()
+    got = TV.vumps_iteration(_vumps_state(dtype, cuda), W.to(cuda), lams,
+                             solve_tol=1e-6)
+    launched = TK.launch_counts["fused_lanczos"]
+    assert launched == TV.counts["ac_passes"] + TV.counts["c_passes"] > 0
+    ref = TV.vumps_iteration(_vumps_state(dtype, "cpu"), W, lams,
+                             lanczos_impl="fused", solve_tol=1e-6)
+    assert abs(float(got[1]) - float(ref[1])) < e_tol
+    a = got[0].AC.double().cpu().reshape(-1)
+    b = ref[0].AC.double().reshape(-1)
+    assert float(torch.dot(a, b).abs() / (a.norm() * b.norm())) > 1 - fid_tol
+
+
+def test_vumps_default_launches_k2_on_real_states_only(cuda):
+    from tensornetwork_tpu_torch.models import vumps as TV
+    W = tmpo.FiniteTFI(-1.0, -1.0, N=3, dtype=torch.float32,
+                       device=cuda).Ws[1]
+    lams = TV.mpo_diagonal_coefficients(W)
+    TK.reset_launch_counts()
+    TV.reset_counts()
+    TV.vumps_iteration(_vumps_state(torch.float32, cuda), W, lams,
+                       lanczos_restarts=2)
+    assert TV.counts == {"ac_passes": 2, "c_passes": 2, "ritz_checks": 0}
+    assert TK.route_counts["fused_lanczos_tc<3,2>"] == 2
+    assert TK.route_counts["fused_lanczos_tc<0,0>"] == 2
+    assert TK.launch_counts["fused_lanczos"] == 4
+    TK.reset_launch_counts()
+    TV.vumps_iteration(_vumps_state(torch.complex64, cuda), W, lams,
+                       lanczos_restarts=2)
+    assert TK.launch_counts["fused_lanczos"] == 0
+
+
+@pytest.mark.parametrize("two_site", [False, True], ids=["1site", "2site"])
+def test_tdvp_complex64_product_state_on_the_card(cuda, two_site):
+    from tensornetwork_tpu_torch.models import tdvp as ttdvp
+    N, chi = 6, 8
+    As = np.zeros((N, chi, 2, chi), np.complex64)
+    As[:, 0, :, 0] = np.array([1.0, 0.3]) / np.hypot(1.0, 0.3)
+    runs = []
+    for dtype, device in ((torch.complex64, cuda),
+                          (torch.complex128, "cpu")):
+        real = torch.float32 if dtype == torch.complex64 else torch.float64
+        mpo = tmpo.FiniteTFI(-1.0, -1.2, N=N, dtype=real, device=device)
+        t = ttdvp.TDVP(torch.as_tensor(As, dtype=dtype, device=device), mpo)
+        t.evolve(0.2, 4, two_site=two_site)
+        runs.append(t.As.to(torch.complex128).cpu())
+    got, ref = runs
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+
+    def dense(A):
+        acc = A[0]
+        for X in A[1:]:
+            acc = torch.einsum("a...b,bsc->a...sc", acc, X)
+        return acc.reshape(chi, -1, chi)[0, :, 0]
+
+    a, b = dense(got), dense(ref)
+    overlap = float(torch.vdot(a, b).abs() / (a.norm() * b.norm()))
+    assert overlap >= 1 - 1e-4
