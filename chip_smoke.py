@@ -186,6 +186,31 @@ VUMPS_F64_ITERS, VUMPS_F64_DE, VUMPS_TAIL_RISE = 40, 1e-6, 2.5
 # iTDVP of the f64 ground state in complex128, t=0.3 in 6 steps: energy and
 # <Z> stationary (tests/test_vumps.py:88-103's bars)
 ITDVP_T, ITDVP_STEPS, ITDVP_DE, ITDVP_DZ = 0.3, 6, 1e-6, 1e-3
+# TEBD on the FiniteMPS: (a) the mps_dmrg ground state quenched to h=1.2
+# (bond term J X X + h/2 (Z 1 + 1 Z)), dt=0.05, 10 real-time steps at
+# chi=64, complex64 against complex128 (overlap >= 1 - TDVP_OVERLAP_TOL);
+# (b) examples/wavefunctions.py's h2, dt and steps from a product state at
+# N=20 against evolve_exact (fidelity above TEBD_EXACT_FID: 0.99939 on an
+# NVIDIA H100 80GB HBM3 at 700 W; tests/test_mera_tebd_imps.py's bar at
+# N=6 is 0.995); (c) imaginary time from random, dt=0.1, 15 steps, every
+# step's energy below the last.
+TEBD_QUENCH_H, TEBD_DT, TEBD_STEPS = 1.2, 0.05, 10
+TEBD_EXACT_N, TEBD_EXACT_DT, TEBD_EXACT_STEPS, TEBD_EXACT_FID = 20, 0.02, 25, \
+    0.999
+TEBD_IMAG_DT, TEBD_IMAG_STEPS = 0.1, 15
+# <X_0 X_j> of the VUMPS state for j <= 64.  Its transfer matrix's second
+# eigenvalue is near -0.9996 (xi ~ 2800): canonicalize's default 30 Krylov
+# vectors leave the right fixed point unresolved and eta off 1 (by 9.3e-5
+# on an NVIDIA H100 80GB HBM3 at 700 W; reported), 200 resolve it (eta
+# within 2e-15 there): the eta bar is on that run.
+IMPS_CORR_J, IMPS_KRYLOV = 64, 200
+# examples/simple_mera.py's model, 60 iterations as in
+# tests/test_mera_tebd_imps.py's test_mera_critical_ising_energy
+MERA_LAYERS, MERA_ITERS = 3, 60
+# batched sweeps with qr_impl="polar_express"; TDVP of a FiniteMPS on the
+# split-complex path (K2 on <0,0>, 4N launches a sweep)
+EXPRESS_SWEEPS = 4
+SC_TDVP_DT, SC_TDVP_SWEEPS = 0.05, 2
 
 
 def emit(**kw):
@@ -1854,6 +1879,344 @@ def itdvp_phase(torch, state64, W64):
           f"iTDVP of the ground state: energy drift {de}, <Z> drift {dz}")
 
 
+def timed(torch, fn):
+    """(fn(), seconds) with the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def paulis():
+    return np.array([[0.0, 1.0], [1.0, 0.0]]), np.diag([1.0, -1.0])
+
+
+def tfi_bond_h2(J, h):
+    """J X X + h/2 (Z 1 + 1 Z): a TFI bond term with FiniteTFI's signs,
+    each site's field split over its two bonds (tests/test_mera_tebd_imps.py
+    _tfi_h2)."""
+    X, Z = paulis()
+    return J * np.kron(X, X) + h / 2 * (np.kron(Z, np.eye(2))
+                                        + np.kron(np.eye(2), Z))
+
+
+def wavefunctions_h2():
+    """examples/wavefunctions.py's bond term: -X X - (Z 1 + 1 Z) / 2."""
+    return tfi_bond_h2(-1.0, -1.0)
+
+
+def mps_dmrg_phase(torch):
+    """bench.py's chain through the documented entry: FiniteMPS.random ->
+    FiniteDMRG(FiniteMPS, FiniteTFI) -> run_one_site, with the "xla" site
+    epilogue and then the fused one (K5), each from the same random state;
+    the result lands in the FiniteMPS.  Then measurements on the state:
+    <Z_i>, <X_i>, <X_16 X_j>, the energy rebuilt from them, and the
+    canonical form about site 16.  Returns the FiniteMPS and the K2/K5
+    launches."""
+    from tensornetwork_tpu_torch import FiniteDMRG, FiniteMPS, FiniteTFI
+    from tensornetwork_tpu_torch.models.dmrg import mps_mpo_expectation
+    from tensornetwork_tpu_torch.ops import kernels as K
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    launches = dict.fromkeys(("fused_lanczos", "fused_gauge_env"), 0)
+    for qr_impl, epilogue_impl in (("householder", "xla"),
+                                   ("polar", "fused")):
+        K.reset_launch_counts()     # each run's counts, summed below
+        mps, random_s = timed(torch, lambda: FiniteMPS.random(
+            N, CHI, D, dtype=torch.float32, seed=8, device=DEV))
+        dm = FiniteDMRG(mps, mpo)
+        e, run_s = timed(torch, lambda: dm.run_one_site(
+            SINGLE_SWEEPS, KRYLOV, qr_impl=qr_impl,
+            epilogue_impl=epilogue_impl))
+        counts, routes = dict(K.launch_counts), dict(K.route_counts)
+        sweeps = len(dm.energies)
+        check(mps.to_stack() is dm.As and mps.center_position is None,
+              "FiniteDMRG did not write its result into the FiniteMPS")
+        de = state_delta_e(torch, mps.As, mpo64)
+        emit(phase="mps_dmrg", qr_impl=qr_impl, epilogue_impl=epilogue_impl,
+             sweeps=sweeps, delta_E=de, ritz_delta_E=e - REFERENCE_ENERGY,
+             random_s=random_s, run_s=run_s, sweeps_per_s=sweeps / run_s,
+             k2_launches=counts["fused_lanczos"],
+             k5_launches=counts["fused_gauge_env"])
+        check(counts["fused_lanczos"] == 2 * N * sweeps,
+              f"mps_dmrg: {counts['fused_lanczos']} K2 launches in {sweeps} "
+              f"sweeps, expected {2 * N} a sweep")
+        k5_want = N + K5_PER_SWEEP * sweeps if epilogue_impl == "fused" else 0
+        check(counts["fused_gauge_env"] == k5_want,
+              f"mps_dmrg: {counts['fused_gauge_env']} K5 launches, expected "
+              f"{k5_want}")
+        if epilogue_impl == "fused":
+            check_k5_resident(counts, routes)
+        check(DE_LO <= de <= DE_HI,
+              f"mps_dmrg ({epilogue_impl}) delta E {de} outside window")
+        for k in launches:
+            launches[k] += counts[k]
+    X, Z = paulis()
+    (zs, xs), local_s = timed(torch, lambda: (
+        mps.measure_local_operator([Z] * N, range(N)),
+        mps.measure_local_operator([X] * N, range(N))))
+    xx, corr_s = timed(torch, lambda: mps.measure_two_body_correlator(
+        X, X, N // 2, range(N)))
+    # the energy from the measurements, on an f64 copy of the state
+    m64 = FiniteMPS(mps.As.double(), canonicalize=False)
+    bonds = torch.stack([m64.measure_two_body_correlator(X, X, i, [i + 1])[0]
+                         for i in range(N - 1)])
+    z64 = torch.stack(m64.measure_local_operator([Z] * N, range(N)))
+    e_rebuilt = float(bonds.sum() + z64.sum())
+    e_mpo = float(mps_mpo_expectation(m64.As, mpo64.Ws, mpo64.vL, mpo64.vR))
+    xx16 = float(m64.measure_two_body_correlator(X, X, N // 2,
+                                                 [N // 2])[0])
+    norm, position_s = timed(torch, lambda: mps.position(N // 2))
+    canon = float(mps.check_canonical())
+    state_norm = float(mps.norm())
+    emit(phase="mps_measure", N=N, chi=CHI,
+         z=[float(v) for v in zs], x=[float(v) for v in xs],
+         xx_from_16=[float(v) for v in xx], local_s=local_s, corr_s=corr_s,
+         energy_rebuilt=e_rebuilt, energy_mpo=e_mpo,
+         rebuilt_minus_mpo=e_rebuilt - e_mpo, xx_16_16_f64=xx16,
+         xx_16_16_f32=float(xx[N // 2]), position_s=position_s,
+         position_norm=float(norm), check_canonical=canon,
+         norm_after_position=state_norm)
+    check(all(np.isfinite(float(v)) for v in zs + xs + xx),
+          "mps measurements not finite")
+    check(abs(e_rebuilt - e_mpo) < 1e-9,
+          f"energy from <XX> and <Z> {e_rebuilt} against the MPO's {e_mpo}")
+    check(abs(xx16 - 1) < 1e-12 and abs(float(xx[N // 2]) - 1) < 1e-5,
+          f"<X_16 X_16> = {xx16} (f64), {float(xx[N // 2])} (f32)")
+    check(canon < 1e-4 and abs(state_norm - 1) < 1e-5,
+          f"after position({N // 2}): check_canonical {canon}, norm "
+          f"{state_norm}")
+    return mps, launches
+
+
+def boundary_block(As):
+    """The block [0, :, 0] of a stacked MPS as a state vector, on its
+    device (FiniteMPS.to_dense keeps every boundary pair: chi^2 times the
+    memory)."""
+    chi, d = As.shape[1], As.shape[2]
+    v = As[0, 0]
+    for A in As[1:]:
+        v = (v @ A.reshape(chi, d * chi)).reshape(-1, chi)
+    return v[:, 0]
+
+
+def mps_overlap(a, b):
+    """|<a|b>| / (|a| |b|) of two FiniteMPS."""
+    return float(abs(b.inner(a)) / (a.norm() * b.norm()))
+
+
+def tebd_phase(torch, ground):
+    """(a) the mps_dmrg ground state quenched to h=1.2 at users' width, in
+    complex64 against the same steps in complex128; (b) a product state at
+    N=20 against evolve_exact on the card; (c) imaginary time from random
+    with every step's energy below the previous one."""
+    from tensornetwork_tpu_torch import FiniteMPS, tebd
+    h2 = tfi_bond_h2(1.0, TEBD_QUENCH_H)
+
+    def quench(dtype):
+        mps = FiniteMPS(ground.As.to(dtype), canonicalize=False)
+        norms, terr, secs = [], 0.0, []
+        for _ in range(TEBD_STEPS):
+            (_, w), s = timed(torch, lambda: tebd.evolve_mps(
+                mps, h2, TEBD_DT, 1, max_singular_values=CHI,
+                normalize=False))
+            nrm = float(mps.norm())
+            mps.As = torch.cat([mps.As[:1] / nrm, mps.As[1:]])
+            norms.append(nrm)
+            terr += w
+            secs.append(s)
+        return mps, norms, terr, secs
+
+    mps, norms, terr, secs = quench(torch.complex64)
+    ref, _, terr128, _ = quench(torch.complex128)
+    overlap = mps_overlap(mps, ref)
+    gate = tebd.trotter_gate(h2, TEBD_DT, device=DEV)
+    step_s = statistics.median(secs)
+    busy_ms, top = device_busy_ms(
+        torch, lambda: tebd.tebd_sweep(mps, gate, max_singular_values=CHI),
+        top=DEVICE_TOP)
+    emit(phase="tebd_quench", N=N, chi=CHI, h=TEBD_QUENCH_H, dt=TEBD_DT,
+         steps=TEBD_STEPS, steps_per_s=1 / step_s, step_s=secs,
+         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / (
+             1e3 * step_s), device_top=top,
+         norm_before_renormalization=norms, truncated_weight=terr,
+         truncated_weight_c128=terr128, overlap_with_c128=overlap)
+    check(bool(torch.isfinite(torch.view_as_real(mps.As)).all()),
+          "TEBD quench state not finite")
+    check(overlap >= 1 - TDVP_OVERLAP_TOL,
+          f"TEBD quench against complex128: overlap {overlap}")
+
+    # (b) against the exact state
+    h2 = wavefunctions_h2()
+    As = torch.zeros((TEBD_EXACT_N, CHI, D, CHI), dtype=torch.float32,
+                     device=DEV)
+    As[:, 0, 0, 0] = 1.0
+    mps = FiniteMPS(As, canonicalize=False)
+    (_, terr), mps_s = timed(torch, lambda: tebd.evolve_mps(
+        mps, h2, TEBD_EXACT_DT, TEBD_EXACT_STEPS, max_singular_values=CHI))
+    psi0 = torch.zeros((D,) * TEBD_EXACT_N, dtype=torch.float32, device=DEV)
+    psi0[(0,) * TEBD_EXACT_N] = 1.0
+    psi, exact_s = timed(torch, lambda: tebd.evolve_exact(
+        psi0, h2, TEBD_EXACT_DT, TEBD_EXACT_STEPS))
+    blk = boundary_block(mps.As)
+    fid = float(abs(tebd.inner_exact(blk / torch.linalg.vector_norm(blk),
+                                     psi.reshape(-1).to(blk.dtype))))
+    emit(phase="tebd_exact", N=TEBD_EXACT_N, chi=CHI, dt=TEBD_EXACT_DT,
+         steps=TEBD_EXACT_STEPS, fidelity=fid, truncated_weight=terr,
+         mps_s=mps_s, exact_s=exact_s, dtype=str(mps.dtype)[6:])
+    check(fid > TEBD_EXACT_FID and terr < 1e-6,
+          f"TEBD against the exact state: fidelity {fid}, truncated "
+          f"weight {terr}")
+
+    # (c) imaginary time from random
+    mps = FiniteMPS.random(N, CHI, D, dtype=torch.float32, seed=9,
+                           device=DEV)
+    e0 = tebd.measure_energy(mps, h2)
+    (energies, terr), imag_s = timed(torch, lambda: tebd.evolve_mps(
+        mps, h2, TEBD_IMAG_DT, TEBD_IMAG_STEPS, imaginary=True,
+        max_singular_values=CHI))
+    es = [e0] + energies
+    emit(phase="tebd_imaginary", N=N, chi=CHI, dt=TEBD_IMAG_DT,
+         steps=TEBD_IMAG_STEPS, energies=es, truncated_weight=terr,
+         seconds=imag_s)
+    check(all(b < a for a, b in zip(es, es[1:])),
+          f"imaginary-time TEBD energies did not fall every step: {es}")
+
+
+def imps_phase(torch, state64):
+    """(a) random two-site cells at chi=64 canonicalised, f64 and f32; (b)
+    the f64 critical VUMPS ground state as an InfiniteMPS of its AL:
+    canonicalize with the default and with IMPS_KRYLOV Krylov vectors (eta,
+    the residual), and on the AL cell <Z> against VUMPS's, the energy
+    density from <X_0 X_1> and <Z> (with FiniteTFI's signs), <X_0 X_j>."""
+    from tensornetwork_tpu_torch import InfiniteMPS
+    from tensornetwork_tpu_torch.models import vumps as V
+    for dtype, bar in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        imps = InfiniteMPS.random(2, CHI, D, dtype=dtype, seed=10, device=DEV)
+        on_cpu = InfiniteMPS(imps.As.cpu())
+        (eta, _), secs = timed(torch, imps.canonicalize)
+        err = imps.check_right_canonical()
+        on_cpu.canonicalize()
+        emit(phase="imps_random", dtype=str(dtype)[6:], cells=2, chi=CHI,
+             eta=eta, check_right_canonical=err, canonicalize_s=secs,
+             same_cell_on_the_cpu=on_cpu.check_right_canonical())
+        check(np.isfinite(eta) and err < bar,
+              f"InfiniteMPS ({dtype}) canonicalize: eta {eta}, residual "
+              f"{err}")
+    X, Z = paulis()
+    imps = InfiniteMPS(state64.AL[None])
+    (eta, _), secs = timed(torch, imps.canonicalize)
+    err = imps.check_right_canonical()
+    resolved = InfiniteMPS(state64.AL[None])
+    (eta_r, _), secs_r = timed(torch, lambda: resolved.canonicalize(
+        num_krylov_vecs=IMPS_KRYLOV))
+    err_r = resolved.check_right_canonical()
+    cell = InfiniteMPS(state64.AL[None])     # left-canonical: l = 1 exactly
+    z = float(cell.measure_local_operator(Z).real)
+    z_vumps = V.uniform_expectation_1site(state64, Z).real
+    xx, corr_s = timed(torch, lambda: cell.measure_two_body_correlator(
+        X, X, 0, range(1, IMPS_CORR_J + 1)))
+    xx = [float(v.real) for v in xx]
+    e = xx[0] + z
+    emit(phase="imps_vumps", chi=state64.AL.shape[0], eta=eta,
+         check_right_canonical=err, canonicalize_s=secs,
+         krylov_vecs_resolved=IMPS_KRYLOV, eta_resolved=eta_r,
+         check_right_canonical_resolved=err_r,
+         canonicalize_resolved_s=secs_r, z=z, z_minus_vumps=z - z_vumps,
+         energy_density=e, energy_minus_exact=e + 4 / np.pi,
+         xx_from_0=xx, correlator_s=corr_s)
+    check(all(np.isfinite(v) for v in [eta, err, eta_r, err_r, z, e] + xx)
+          and abs(eta_r - 1) < 1e-6,
+          f"InfiniteMPS of the VUMPS state: eta {eta} ({IMPS_KRYLOV} Krylov "
+          f"vectors: {eta_r}), e {e}")
+
+
+def mera_phase(torch):
+    """examples/simple_mera.py's model on the card: blocked critical Ising
+    (chi=4), 3 layers, f64, 60 iterations; E/spin within 1% of -4/pi and
+    every u and w isometric."""
+    from tensornetwork_tpu_torch import mera
+    h3 = mera.blocked_ising_hamiltonian(device=DEV)
+    state = mera.initialize_mera(4, MERA_LAYERS, device=DEV)
+    (state, e), secs = timed(torch, lambda: mera.optimize_mera(
+        h3, state, num_iterations=MERA_ITERS))
+    per_spin = e / 2
+    iso = max(max(float(torch.linalg.vector_norm(
+        u.reshape(16, 16) @ u.reshape(16, 16).mT - torch.eye(
+            16, dtype=u.dtype, device=u.device))) for u in state.us),
+        max(float(torch.linalg.vector_norm(
+            w.reshape(4, 16) @ w.reshape(4, 16).mT - torch.eye(
+                4, dtype=w.dtype, device=w.device))) for w in state.ws))
+    rel = abs(per_spin + 4 / np.pi) / (4 / np.pi)
+    emit(phase="mera", chi=4, layers=MERA_LAYERS, iterations=MERA_ITERS,
+         energy_per_spin=per_spin, relative_error=rel,
+         isometry_error=iso, ms_per_iteration=1e3 * secs / MERA_ITERS)
+    check(rel < 0.01 and iso < 1e-10,
+          f"MERA: E/spin {per_spin} ({rel} from -4/pi), isometry {iso}")
+
+
+def api_leftovers_phase(torch, ground):
+    """The API the ported modules had left out, on the card: a batched
+    one-site sweep with qr_impl="polar_express"; batched_one_site_sweep_
+    paired bit for bit against batched_one_site_sweep with its defaults;
+    TDVP of a FiniteMPS on the split-complex path (K2 on <0,0>)."""
+    from tensornetwork_tpu_torch import (TDVP, FiniteMPS, FiniteTFI,
+                                         batched_one_site_sweep,
+                                         batched_one_site_sweep_paired)
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.ops import kernels as K
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    start = random_mps_stack(11, BATCH * N, CHI, D,
+                             dtype=torch.float32).reshape(BATCH, N, CHI, D, CHI)
+    As, renvs, times = start, None, []
+    for _ in range(EXPRESS_SWEEPS):
+        res, s = timed(torch, lambda: batched_one_site_sweep(
+            As, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV,
+            qr_impl="polar_express", renvs=renvs))
+        As, renvs = res.As, res.renvs
+        times.append(s)
+    de = np.array([state_delta_e(torch, a, mpo64) for a in As])
+    emit(phase="polar_express_batched", batch=BATCH, chi=CHI,
+         sweeps=EXPRESS_SWEEPS, sweep_s=times,
+         instance_sweeps_per_s=BATCH / statistics.median(times[1:]),
+         delta_E_median=float(np.median(de)), delta_E_min=float(de.min()),
+         delta_E_max=float(de.max()),
+         instances_in_window=int(np.sum((de >= DE_LO) & (de <= DE_HI))))
+    check(bool(np.all(np.isfinite(de))), "polar_express sweep not finite")
+
+    paired, paired_s = timed(torch, lambda: batched_one_site_sweep_paired(
+        start, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV))
+    plain, plain_s = timed(torch, lambda: batched_one_site_sweep(
+        start, mpo.Ws, mpo.vL, mpo.vR, num_krylov_vecs=KRYLOV,
+        qr_impl="polar", ritz_impl="power"))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(paired, plain))
+    emit(phase="paired_names", batch=BATCH, chi=CHI, bit_for_bit=same,
+         paired_s=paired_s, unpaired_s=plain_s)
+    check(same, "batched_one_site_sweep_paired differs from the one route")
+
+    mps = FiniteMPS(ground.As.clone(), canonicalize=False)
+    before, routes0 = dict(K.launch_counts), dict(K.route_counts)
+    tdvp = TDVP(mps, mpo, split_complex=True)
+    _, secs = timed(torch, lambda: tdvp.evolve(SC_TDVP_DT * SC_TDVP_SWEEPS,
+                                               SC_TDVP_SWEEPS,
+                                               num_krylov_vecs=KRYLOV))
+    k2 = K.launch_counts["fused_lanczos"] - before["fused_lanczos"]
+    routes = {k: v - routes0.get(k, 0) for k, v in K.route_counts.items()}
+    norm = float(mps.norm())
+    emit(phase="tdvp_finite_mps", N=N, chi=CHI, dt=SC_TDVP_DT,
+         sweeps=SC_TDVP_SWEEPS, seconds=secs, norm=norm, k2_launches=k2,
+         k2_routes={k: v for k, v in routes.items()
+                    if k.startswith("fused_lanczos_")})
+    check(mps.to_stack() is tdvp.As and mps.dtype == torch.complex64,
+          "TDVP did not write its result into the FiniteMPS")
+    check(abs(norm - 1) < TDVP_NORM_TOL, f"TDVP(FiniteMPS) norm {norm}")
+    check(k2 == TDVP_PER_SWEEP * SC_TDVP_SWEEPS,
+          f"TDVP(FiniteMPS): {k2} K2 launches, expected "
+          f"{TDVP_PER_SWEEP * SC_TDVP_SWEEPS}")
+
+
 def two_site_large_phase(torch, chi, tier, sweeps, matvec_ms):
     """Two-site sweeps of one TFI N=32 chain at bond dimension chi through
     the tier two_site_tier picks, from a random state.  The launch counts
@@ -2113,7 +2476,28 @@ def main():
     counts = vumps_counts()
     emit(phase="itdvp_launches", **counts)
     check(counts["k2"] == 0, f"K2 launched on a complex state: {counts}")
+    state64 = res.state
     del res
+
+    # the MPS object layer, each path with its own counts
+    K.reset_launch_counts()
+    ground, counts = mps_dmrg_phase(torch)
+    emit(phase="mps_dmrg_launches", **counts)
+    check(counts["fused_lanczos"] > 0 and counts["fused_gauge_env"] > 0,
+          f"a kernel of the FiniteMPS path never launched: {counts}")
+    for name in counts:
+        launches[name] += counts[name]
+    tebd_phase(torch, ground)
+    imps_phase(torch, state64)
+    mera_phase(torch)
+    K.reset_launch_counts()
+    api_leftovers_phase(torch, ground)
+    counts = dict(K.launch_counts)
+    emit(phase="api_leftovers_launches", **counts)
+    check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
+    launches["fused_lanczos"] += counts["fused_lanczos"]
+    del ground, state64
+    torch.cuda.empty_cache()
 
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],

@@ -6,7 +6,10 @@ TDVP time evolution (``models.tdvp``; batched real-time quenches in
 realified complex operands; and the infinite chain (``models.vumps``):
 VUMPS ground states, whose AC and C solves run K2, iTDVP, and the
 transfer-matrix correlation length on the restarted Arnoldi of
-``ops.krylov``.  The
+``ops.krylov``; and the MPS object layer: ``FiniteMPS`` (canonical forms,
+measurements, gates; ``FiniteDMRG`` and ``TDVP`` take it and write their
+result back), TEBD (``models.tebd``), ``InfiniteMPS`` and the binary MERA
+(``models.mera``).  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
 CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
@@ -24,9 +27,12 @@ from tensornetwork_tpu_torch.models.dmrg import (FiniteDMRG, SweepResult,
                                                  one_site_sweep,
                                                  random_mps_stack,
                                                  two_site_sweep)
+from tensornetwork_tpu_torch.models import mera, tebd
+from tensornetwork_tpu_torch.models.infinite_mps import InfiniteMPS
 from tensornetwork_tpu_torch.models.mpo import (MPO, FiniteFreeFermion2D,
                                                FiniteTFI, FiniteXXZ,
                                                InfiniteMPO, mpo_to_dense)
+from tensornetwork_tpu_torch.models.mps import FiniteMPS
 from tensornetwork_tpu_torch.models.tdvp import (TDVP, tdvp_one_site_sweep,
                                                  tdvp_one_site_sweep_sc,
                                                  tdvp_two_site_sweep,
@@ -34,10 +40,11 @@ from tensornetwork_tpu_torch.models.tdvp import (TDVP, tdvp_one_site_sweep,
 from tensornetwork_tpu_torch.models.vumps import (VUMPSResult, VUMPSState,
                                                   correlation_length, itdvp,
                                                   vumps, vumps_iteration)
-from tensornetwork_tpu_torch.ops.decompositions import (polar_complete,
+from tensornetwork_tpu_torch.ops.decompositions import (ns_polar_express,
+                                                        polar_complete,
                                                         subspace_truncate,
                                                         svd_masked)
-from tensornetwork_tpu_torch.parallel.batch import (BatchedDMRG,
-                                                    batched_one_site_sweep,
-                                                    batched_tdvp_one_site_sweep_sc,
-                                                    batched_two_site_sweep)
+from tensornetwork_tpu_torch.parallel.batch import (
+    BatchedDMRG, batched_one_site_sweep, batched_one_site_sweep_paired,
+    batched_tdvp_one_site_sweep_sc, batched_two_site_sweep,
+    batched_two_site_sweep_paired)

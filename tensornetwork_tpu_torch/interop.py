@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from tensornetwork_tpu_torch.config import Device, as_tensor
+from tensornetwork_tpu_torch.models.mera import MERAState
 from tensornetwork_tpu_torch.models.mpo import MPO
+from tensornetwork_tpu_torch.models.mps import FiniteMPS
 from tensornetwork_tpu_torch.models.vumps import VUMPSState
 
 
@@ -56,3 +58,22 @@ def vumps_state_from_numpy(AL, AR, C, AC, *, device: Optional[Device] = None,
     ``VUMPSState`` (``np.asarray`` of each), so that both packages iterate
     from the same uniform MPS."""
     return VUMPSState(*(_tensor(a, device, dtype) for a in (AL, AR, C, AC)))
+
+
+def finite_mps_from_numpy(As, center_position: Optional[int] = None, *,
+                          device: Optional[Device] = None,
+                          dtype: Optional[torch.dtype] = None) -> FiniteMPS:
+    """A :class:`FiniteMPS` holding the JAX package's ``FiniteMPS`` state
+    (``np.asarray`` of its ``As`` and its ``center_position``) as it is,
+    not canonicalised again.  An ``InfiniteMPS`` takes
+    :func:`mps_from_numpy`'s tensor directly."""
+    return FiniteMPS(_tensor(As, device, dtype),
+                     center_position=center_position, canonicalize=False)
+
+
+def mera_state_from_numpy(us, ws, *, device: Optional[Device] = None,
+                          dtype: Optional[torch.dtype] = None) -> MERAState:
+    """A :class:`MERAState` from the JAX package's ``MERAState`` lists
+    (``np.asarray`` of each u and w)."""
+    return MERAState([_tensor(u, device, dtype) for u in us],
+                     [_tensor(w, device, dtype) for w in ws])

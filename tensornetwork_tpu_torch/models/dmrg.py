@@ -39,8 +39,15 @@ from tensornetwork_tpu_torch.ops import decompositions, kernels, krylov
 # solve defaults to the fused kernel, as the JAX package does on its
 # accelerator.
 QR_IMPL = "householder"   # decompositions.qr: "householder" | "cholesky" |
-                          # "polar" | "polar_complete"
+                          # "polar" | "polar_express" | "polar_complete"
 RITZ_IMPL = "eigh"        # "eigh" | "power"
+# The JAX package's MATVEC_PRECISION and the sweeps' ``matvec_prec``, kept
+# for their names and read by nothing.  There they lower the precision of the
+# plain route's Lanczos matvec.  Here that matvec is K1 on the card, whose
+# float32 arithmetic is its own (3xTF32) whatever cuBLAS is allowed, and
+# K1's plain twin on the CPU, where there is no TF32: no value could change
+# a result.  Every sweep runs with TF32 off (config.highest_precision).
+MATVEC_PRECISION: Optional[str] = None
 LANCZOS_IMPL = "fused"    # "fused" | "plain" (the JAX package's "xla")
 # The one-site site epilogue (gauge shift and environment growth), the
 # JAX package's default and names: "fused" is the fused kernel
@@ -331,7 +338,8 @@ def one_site_sweep(As, Ws, vL, vR, num_krylov_vecs: int = 10,
                    reorth: bool = True,
                    lanczos_impl: Optional[str] = None,
                    epilogue_impl: Optional[str] = None,
-                   renvs=None) -> SweepResult:
+                   renvs=None,
+                   matvec_prec: Optional[str] = None) -> SweepResult:
     """One full one-site DMRG sweep of one instance As (N, chi, d, chi),
     on the device the tensors lie on.
 
@@ -340,7 +348,9 @@ def one_site_sweep(As, Ws, vL, vR, num_krylov_vecs: int = 10,
     ``epilogue_impl`` default to :data:`QR_IMPL`/:data:`RITZ_IMPL`/
     :data:`LANCZOS_IMPL`/:data:`EPILOGUE_IMPL`; ``epilogue_impl="fused"``
     takes effect with ``qr_impl="polar"``.  ``renvs``: the previous
-    result's ``renvs``, which skips the re-canonicalization prepass."""
+    result's ``renvs``, which skips the re-canonicalization prepass.
+    ``matvec_prec`` is the JAX package's argument, accepted and ignored
+    (see :data:`MATVEC_PRECISION`)."""
     qr_impl = QR_IMPL if qr_impl is None else qr_impl
     ritz_impl = RITZ_IMPL if ritz_impl is None else ritz_impl
     lanczos_impl = LANCZOS_IMPL if lanczos_impl is None else lanczos_impl
@@ -452,17 +462,18 @@ def two_site_sweep(As, Ws, vL, vR, num_krylov_vecs: int = 10,
                    trunc_iters: Optional[int] = None,
                    trunc_orth: Optional[str] = None,
                    trunc_polar_fast: Optional[Tuple[int, int]] = None,
-                   renvs=None) -> SweepResult:
+                   renvs=None,
+                   matvec_prec: Optional[str] = None) -> SweepResult:
     """One full two-site DMRG sweep of one instance As (N, chi, d, chi),
     each bond truncated back to chi, on the device the tensors lie on.
     Returns a :class:`SweepResult` with ``energies`` per bond (N-1,),
     ``trunc_err`` the accumulated discarded weight of both passes and
     ``renvs`` (N-1, chi, M, chi) for chaining.
 
-    ``boundary_envs``, ``qr_impl``, ``ritz_impl``, ``lanczos_impl`` as in
-    :func:`one_site_sweep`; ``trunc_impl``/``trunc_iters``/``trunc_orth``
-    default to :data:`TRUNC_IMPL`/:data:`TRUNC_ITERS`/:data:`TRUNC_ORTH`;
-    ``trunc_polar_fast`` as in
+    ``boundary_envs``, ``qr_impl``, ``ritz_impl``, ``lanczos_impl``,
+    ``matvec_prec`` as in :func:`one_site_sweep`; ``trunc_impl``/
+    ``trunc_iters``/``trunc_orth`` default to :data:`TRUNC_IMPL`/
+    :data:`TRUNC_ITERS`/:data:`TRUNC_ORTH`; ``trunc_polar_fast`` as in
     :func:`~tensornetwork_tpu_torch.ops.decompositions.subspace_truncate`."""
     qr_impl = QR_IMPL if qr_impl is None else qr_impl
     ritz_impl = RITZ_IMPL if ritz_impl is None else ritz_impl
@@ -511,12 +522,16 @@ def mps_mpo_expectation(As, Ws, vL, vR) -> torch.Tensor:
 
 
 class FiniteDMRG:
-    """Sweeping ground-state solver for one MPS stack (N, chi, d, chi)
-    and an :class:`MPO`.  Tensors stay on their device; anything else goes
-    to :func:`default_device`."""
+    """Sweeping ground-state solver for one MPS -- a stack (N, chi, d,
+    chi) or a :class:`~tensornetwork_tpu_torch.models.mps.FiniteMPS`, which
+    gets the result back (``from_stack``) when a run ends -- and an
+    :class:`MPO`.  Tensors stay on their device; anything else goes to
+    :func:`default_device`."""
 
     def __init__(self, mps, mpo: MPO, device: Optional[Device] = None):
-        self.As = as_tensor(mps, device)
+        self._mps_obj = mps if hasattr(mps, "to_stack") else None
+        self.As = as_tensor(mps.to_stack() if self._mps_obj is not None
+                            else mps, device)
         self.mpo = mpo
         if self.As.shape[0] != mpo.num_sites:
             raise ValueError(f"MPS has {self.As.shape[0]} sites but MPO "
@@ -543,6 +558,8 @@ class FiniteDMRG:
             if e_prev is not None and abs(e - e_prev) < tol:
                 break
             e_prev = e
+        if self._mps_obj is not None:
+            self._mps_obj.from_stack(self.As)
         return self.energies[-1]
 
     def run_one_site(self, num_sweeps: int = 4, num_krylov_vecs: int = 10,

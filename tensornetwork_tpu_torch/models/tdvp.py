@@ -343,16 +343,21 @@ def _complex_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 class TDVP:
-    """Time evolution of one MPS stack (N, chi, d, chi) under an
+    """Time evolution of one MPS -- a stack (N, chi, d, chi) or a
+    :class:`~tensornetwork_tpu_torch.models.mps.FiniteMPS`, which gets the
+    evolved state back (``from_stack``) after every step -- under an
     :class:`MPO`.  For real time pass a complex state, or set
     ``split_complex=True`` to run the ``_sc`` path (a real state is then
     taken as complex; the MPO stays real).  Tensors stay on their device;
     anything else goes to :func:`~tensornetwork_tpu_torch.config.
-    default_device`.  Counterpart of the JAX package's ``TDVP``."""
+    default_device`.  Counterpart of the JAX package's ``TDVP``, whose
+    ``_sc`` path leaves its ``FiniteMPS`` as it was."""
 
     def __init__(self, mps, mpo: MPO, split_complex: bool = False,
                  device: Optional[Device] = None):
-        As = as_tensor(mps, device)
+        self._mps_obj = mps if hasattr(mps, "to_stack") else None
+        As = as_tensor(mps.to_stack() if self._mps_obj is not None else mps,
+                       device)
         if As.shape[0] != mpo.num_sites:
             raise ValueError(
                 f"MPS has {As.shape[0]} sites, MPO {mpo.num_sites}")
@@ -386,6 +391,8 @@ class TDVP:
             self.As = tdvp_one_site_sweep(*args,
                                           num_krylov_vecs=num_krylov_vecs,
                                           imaginary=imaginary)
+        if self._mps_obj is not None:
+            self._mps_obj.from_stack(self.As)
 
     def evolve(self, t: float, num_steps: int, num_krylov_vecs: int = 20,
                imaginary: bool = False, two_site: bool = False

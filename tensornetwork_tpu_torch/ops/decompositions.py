@@ -1,20 +1,28 @@
 """Gauge factorizations and bond truncations of the DMRG sweeps.
 
-Counterpart of the gauge and truncation part of
-:mod:`tensornetwork_tpu.ops.decompositions`: ``ns_polar``, ``cholqr2``,
-``svd_masked`` and ``subspace_truncate``; Householder QR is
-``torch.linalg.qr`` and the SVD ``torch.linalg.svd``, both through
-:func:`lapack_factor`.  Also ``polar_complete``, the full-isometry polar
-split of the TDVP gauge shifts (the JAX package's ``ns_polar_complete``
-and its split-complex ``polar_complete`` in one).  Every function works on
-stacks of matrices (leading batch dimensions); ``ns_polar``,
-``polar_complete`` and ``svd_masked`` take complex ones too.
+Counterpart of :mod:`tensornetwork_tpu.ops.decompositions`: ``ns_polar``,
+``ns_polar_express``, ``cholqr2``, ``svd_masked`` and
+``subspace_truncate``; Householder QR is ``torch.linalg.qr`` and the SVD
+``torch.linalg.svd``, both through :func:`lapack_factor`.  Also
+``polar_complete``, the full-isometry polar split of the TDVP gauge shifts
+(the JAX package's ``ns_polar_complete`` and its split-complex
+``polar_complete`` in one).  Every one of these works on stacks of
+matrices (leading batch dimensions); ``ns_polar``, ``polar_complete`` and
+``svd_masked`` take complex ones too.
+
+The host-level tensor factorizations :func:`svd`, :func:`rq` and
+:func:`eigh` split one tensor around a pivot axis and keep the JAX
+package's truncation contract: the discarded singular values are the
+largest tail whose L2 norm is at most ``max_truncation_error`` (times the
+largest singular value when ``relative``), capped by
+``max_singular_values``.  Their output shapes depend on the data.
 """
 from __future__ import annotations
 
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -94,6 +102,120 @@ def polar_complete(m: torch.Tensor, quintic_iters: Optional[int] = None,
     return Q, Q.mH @ m
 
 
+def _pe_best_step(l: float) -> Tuple[Tuple[float, float, float], float]:
+    """One Polar Express step on the host, in float64: the odd quintic
+    p(x) = a x + b x^3 + c x^5 maximising min p on [l, 1] subject to p <= 1
+    there, by a linear program on a grid refined with cutting planes from a
+    fine validation grid.  Returns ((a, b, c), new l), scaled so that max
+    p <= 1 with a small safety margin.  The JAX package's ``_pe_best_step``."""
+    from scipy.optimize import linprog
+    x = np.unique(np.concatenate([np.geomspace(l, 1.0, 2500),
+                                  np.linspace(l, 1.0, 2500)]))
+    xf = np.unique(np.concatenate([np.geomspace(l, 1.0, 120000),
+                                   np.linspace(l, 1.0, 120000)]))
+    a = b = c = t = None
+    for _ in range(8):
+        n = len(x)
+        M = np.stack([x, x**3, x**5], axis=1)
+        # vars (a, b, c, t): maximise t  s.t.  M v <= 1,  t - M v <= 0
+        A_ub = np.concatenate([
+            np.concatenate([M, np.zeros((n, 1))], axis=1),
+            np.concatenate([-M, np.ones((n, 1))], axis=1)])
+        b_ub = np.concatenate([np.ones(n), np.zeros(n)])
+        res = linprog(np.array([0.0, 0.0, 0.0, -1.0]), A_ub=A_ub, b_ub=b_ub,
+                      bounds=[(None, None)] * 4, method="highs")
+        a, b, c, t = res.x
+        vals = a * xf + b * xf**3 + c * xf**5
+        mn, mx = float(np.min(vals)), float(np.max(vals))
+        if mn >= t * (1.0 - 1e-3) and mx <= 1.0 + 1e-9:
+            break
+        new_pts = [xf[int(np.argmin(vals))], xf[int(np.argmax(vals))]]
+        x = np.unique(np.concatenate([x, np.asarray(new_pts)]))
+    scale = max(mx, 1.0) * 1.00002
+    return (a / scale, b / scale, c / scale), mn / scale
+
+
+@functools.lru_cache(maxsize=32)
+def _polar_express_schedule(l: float, target: float, max_steps: int = 24
+                            ) -> Tuple[Tuple[float, float, float], ...]:
+    """The per-step quintic coefficients of :func:`ns_polar_express`: one
+    :func:`_pe_best_step` after another from the lower edge ``l`` of the
+    singular values until ``1 - l < target`` (at most ``max_steps``; stops
+    when a step no longer raises l).  Computed once per (l, target) on the
+    host.  The JAX package's ``_polar_express_schedule``."""
+    steps = []
+    lo = float(l)
+    while 1.0 - lo > target and len(steps) < max_steps:
+        coeffs, new_lo = _pe_best_step(lo)
+        steps.append(coeffs)
+        if new_lo <= lo:
+            break
+        lo = new_lo
+    return tuple(steps)
+
+
+@functools.lru_cache(maxsize=32)
+def _polar_hybrid_schedule(l: float) -> Tuple[Tuple[float, float, float],
+                                               ...]:
+    """The ``mode="hybrid"`` schedule of :func:`ns_polar_express`: the
+    fixed quintic (3.4445, -4.7750, 2.0315) of :func:`ns_polar` while the
+    lower edge is below 5% of the upper (1.2022...), then
+    :func:`_pe_best_step` quintics, each folding the normalisation by the
+    upper edge into its coefficients, until 1 - l/hi <= 1e-2.  The JAX
+    package's ``_polar_hybrid_schedule``."""
+    a, b, c = 3.4445, -4.7750, 2.0315
+    steps = []
+    lo = float(l)
+    hi = 1.20224838
+    while lo < 0.05 * hi and len(steps) < 20:
+        steps.append((a, b, c))
+        lo = a * lo + b * lo**3 + c * lo**5
+    while 1.0 - lo / hi > 1e-2 and len(steps) < 26:
+        (ca, cb, cc), new_lo = _pe_best_step(lo / hi)
+        steps.append((ca / hi, cb / hi**3, cc / hi**5))
+        if new_lo <= lo / hi:
+            break
+        lo, hi = new_lo, 1.0
+    return tuple(steps)
+
+
+def ns_polar_express(m: torch.Tensor, cond_bound: Optional[float] = None,
+                     polish: Optional[int] = None, mode: str = "lp"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Polar decomposition m = Q.P by the minimax-scheduled quintic
+    iteration (the "Polar Express" construction): the same contract as
+    :func:`ns_polar` (a partial isometry on a rank-deficient panel) with
+    fewer matmuls.  ``cond_bound``: the assumed bound on the panel's
+    condition number (1e7 for float32, else 1e10); the Frobenius-normalised
+    panel's smallest singular value is then at least l0 = 1 / (cond_bound
+    sqrt(k) 1.01).  Where l0 < 3e-9 (the float64 default) the schedule's
+    linear programs are unreliable and this is :func:`ns_polar`.  Otherwise
+    the quintic steps of :func:`_polar_express_schedule` (or, with
+    ``mode="hybrid"``, :func:`_polar_hybrid_schedule`), computed on the
+    host in float64, take the lower edge to 1e-2, and ``polish`` cubic
+    Newton-Schulz steps (3 in float32, else 4) finish.  Counterpart of the
+    JAX package's ``ns_polar_express``."""
+    if cond_bound is None:
+        cond_bound = 1e7 if m.dtype == torch.float32 else 1e10
+    k = m.shape[-1]
+    l0 = 1.0 / (float(cond_bound) * float(np.sqrt(k)) * 1.01)
+    if l0 < 3e-9:
+        return ns_polar(m)
+    nrm = torch.linalg.vector_norm(m, dim=(-2, -1), keepdim=True)
+    X = m / torch.where(nrm > 0, nrm * 1.01, 1.0)
+    if mode == "hybrid":
+        sched = _polar_hybrid_schedule(l0)
+    else:
+        sched = _polar_express_schedule(l0, 1e-2)
+    if polish is None:
+        polish = 3 if m.dtype == torch.float32 else 4
+    for (a, b, c) in sched:
+        G = X.mH @ X
+        X = a * X + X @ (b * G + c * (G @ G))
+    X = _cubic_polish(X, polish)
+    return X, X.mH @ m
+
+
 def cholqr2(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cholesky-QR2: m = Q.R with Q column-orthonormal and R upper
     triangular, from two Gram/Cholesky passes (the second restores the
@@ -157,13 +279,16 @@ def qr(m: torch.Tensor, impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """An isometric/rest split m = Q.R of a stack of tall matrices:
     ``"householder"`` (triangular R, ``torch.linalg.qr`` through
     :func:`lapack_factor`), ``"cholesky"`` (:func:`cholqr2`), ``"polar"``
-    (:func:`ns_polar`) or ``"polar_complete"`` (:func:`polar_complete`)."""
+    (:func:`ns_polar`), ``"polar_express"`` (:func:`ns_polar_express`) or
+    ``"polar_complete"`` (:func:`polar_complete`)."""
     if impl == "householder":
         return lapack_factor(torch.linalg.qr, m)
     if impl == "cholesky":
         return cholqr2(m)
     if impl == "polar":
         return ns_polar(m)
+    if impl == "polar_express":
+        return ns_polar_express(m)
     if impl == "polar_complete":
         return polar_complete(m)
     raise ValueError(f"unknown qr_impl {impl!r}")
@@ -286,3 +411,96 @@ def subspace_truncate(matrix: torch.Tensor, k: int,
     rest = q.mT @ matrix
     trunc = (matrix * matrix).sum((-2, -1)) - (rest * rest).sum((-2, -1))
     return SubspaceTrunc(q, rest, torch.clamp(trunc, min=0.0))
+
+
+# Host-level tensor factorizations around a pivot axis
+# ---------------------------------------------------------------------------
+
+
+def _to_matrix(tensor: torch.Tensor, pivot_axis: int):
+    """``tensor`` as a (prod(left), prod(right)) matrix, with the left and
+    right shapes, split before ``pivot_axis``."""
+    left, right = tuple(tensor.shape[:pivot_axis]), tuple(
+        tensor.shape[pivot_axis:])
+    return (tensor.reshape(int(np.prod(left, dtype=np.int64)),
+                           int(np.prod(right, dtype=np.int64))), left, right)
+
+
+def _num_keep_from_spectrum(s: np.ndarray,
+                            max_singular_values: Optional[int],
+                            max_truncation_error: Optional[float],
+                            relative: bool) -> int:
+    """How many of the descending singular values ``s`` (a host array) to
+    keep: all but the largest tail of L2 norm <= ``max_truncation_error``
+    (times s[0] when ``relative``), then at most ``max_singular_values``."""
+    n = s.shape[0]
+    keep = n
+    if max_truncation_error is not None:
+        err = float(max_truncation_error)
+        if relative and n > 0:
+            err = err * float(s[0])
+        tail_sq = np.cumsum((s**2)[::-1])
+        keep = n - int(np.searchsorted(np.sqrt(tail_sq), err, side="right"))
+    if max_singular_values is not None:
+        keep = min(keep, int(max_singular_values))
+    return max(keep, 0)
+
+
+def svd(tensor: torch.Tensor, pivot_axis: int = -1,
+        max_singular_values: Optional[int] = None,
+        max_truncation_error: Optional[float] = None,
+        relative: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Truncated SVD of ``tensor`` split before ``pivot_axis``: returns
+    ``(u, s, vh, s_rest)`` with ``u`` of shape left + (D,), ``vh`` (D,) +
+    right and ``s_rest`` the discarded singular values.  Without
+    ``max_truncation_error`` the rank D is known without looking at the
+    spectrum; with it, the spectrum is read on the host (one sync).  The
+    SVD is :func:`thin_svd`.  Counterpart of the JAX package's ``svd``."""
+    if pivot_axis < 0:
+        pivot_axis += tensor.dim()
+    matrix, left, right = _to_matrix(tensor, pivot_axis)
+    u, s, vh = thin_svd(matrix)
+    if max_truncation_error is None:
+        keep = s.shape[0]
+        if max_singular_values is not None:
+            keep = min(keep, int(max_singular_values))
+    else:
+        keep = _num_keep_from_spectrum(
+            s.detach().cpu().double().numpy(), max_singular_values,
+            max_truncation_error, relative)
+    return (u[:, :keep].reshape(left + (keep,)), s[:keep],
+            vh[:keep, :].reshape((keep,) + right), s[keep:])
+
+
+def rq(tensor: torch.Tensor, pivot_axis: int = -1,
+       non_negative_diagonal: bool = False
+       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RQ of ``tensor`` split before ``pivot_axis``: ``(r, q)`` with
+    tensor = r @ q and ``q`` of orthonormal rows, from the Householder QR
+    of the conjugate transpose (through :func:`lapack_factor`).  With
+    ``non_negative_diagonal`` the phases of R's diagonal move into Q.
+    Counterpart of the JAX package's ``rq``."""
+    if pivot_axis < 0:
+        pivot_axis += tensor.dim()
+    matrix, left, right = _to_matrix(tensor, pivot_axis)
+    q_, r_ = lapack_factor(torch.linalg.qr, matrix.mH)
+    if non_negative_diagonal:
+        d = torch.diagonal(r_)
+        phase = torch.where(d == 0, torch.ones_like(d), d / d.abs())
+        q_ = q_ * torch.conj(phase)[None, :]
+        r_ = r_ * phase[:, None]
+    r, q = r_.mH.resolve_conj(), q_.mH.resolve_conj()
+    k = q.shape[0]
+    return r.reshape(left + (k,)), q.reshape((k,) + right)
+
+
+def eigh(tensor: torch.Tensor, pivot_axis: int = -1
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigen-decomposition of the Hermitian matrix ``tensor`` makes when
+    split before ``pivot_axis``: ``(e, v)`` with ``v`` of shape left + (n,).
+    Counterpart of the JAX package's ``eigh``."""
+    if pivot_axis < 0:
+        pivot_axis += tensor.dim()
+    matrix, left, _ = _to_matrix(tensor, pivot_axis)
+    e, v = lapack_factor(torch.linalg.eigh, matrix)
+    return e, v.reshape(left + (v.shape[1],))

@@ -169,13 +169,16 @@ def tridiag_ritz(alphas: torch.Tensor, betas: torch.Tensor,
 def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
                   num_krylov_vecs: int = 20, numeig: int = 1,
                   reorthogonalize: bool = True, delta: float = 1e-8,
-                  ritz_method: str = "eigh",
+                  num_restarts: int = 1, ritz_method: str = "eigh",
                   power_iters: int = 60
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smallest ``numeig`` eigenpairs of a Hermitian operator, per instance.
 
     ``initial_state``: (B, *shape); ``matvec`` maps (B, *shape) to the
-    same.  Returns ``(evals (B, numeig), vecs (B, numeig, *shape))``."""
+    same.  Returns ``(evals (B, numeig), vecs (B, numeig, *shape))``.
+    ``num_restarts > 1`` repeats the factorization from each instance's
+    best Ritz vector so far, trading matvecs for basis memory, as the JAX
+    package's ``eigsh_lanczos`` does."""
     B, shape = initial_state.shape[0], initial_state.shape[1:]
     n = initial_state[0].numel()
     num_krylov_vecs = min(num_krylov_vecs, n)
@@ -183,22 +186,29 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
     def mv(x):
         return matvec(x.reshape((B,) + shape)).reshape(B, n)
 
-    V, alphas, betas = lanczos_factorization(
-        mv, initial_state.reshape(B, n), num_krylov_vecs, reorthogonalize,
-        delta)
-    alphas, betas = alphas.real, betas.real
-    if ritz_method == "power" and numeig == 1:
-        lam, w = tridiag_ritz(alphas, betas, "power", power_iters)
-        evals, evecs = lam[:, None], w[:, :, None]
-    else:
-        T = torch.diag_embed(alphas)
-        if betas.shape[-1]:
-            T = T + torch.diag_embed(betas, 1) + torch.diag_embed(betas, -1)
-        evals, evecs = torch.linalg.eigh(T)
-    vecs = torch.einsum("Bkn,Bke->Ben", V, evecs[:, :, :numeig].to(V.dtype))
-    norms = torch.linalg.vector_norm(vecs, dim=-1, keepdim=True)
-    vecs = vecs / torch.where(norms > delta, norms, 1.0)
-    return evals[:, :numeig], vecs.reshape((B, numeig) + tuple(shape))
+    def one_pass(state):
+        V, alphas, betas = lanczos_factorization(
+            mv, state, num_krylov_vecs, reorthogonalize, delta)
+        alphas, betas = alphas.real, betas.real
+        if ritz_method == "power" and numeig == 1:
+            lam, w = tridiag_ritz(alphas, betas, "power", power_iters)
+            evals, evecs = lam[:, None], w[:, :, None]
+        else:
+            T = torch.diag_embed(alphas)
+            if betas.shape[-1]:
+                T = (T + torch.diag_embed(betas, 1)
+                     + torch.diag_embed(betas, -1))
+            evals, evecs = torch.linalg.eigh(T)
+        vecs = torch.einsum("Bkn,Bke->Ben", V,
+                            evecs[:, :, :numeig].to(V.dtype))
+        norms = torch.linalg.vector_norm(vecs, dim=-1, keepdim=True)
+        return evals[:, :numeig], vecs / torch.where(norms > delta, norms,
+                                                     1.0)
+
+    evals, vecs = one_pass(initial_state.reshape(B, n))
+    for _ in range(num_restarts - 1):
+        evals, vecs = one_pass(vecs[:, 0])
+    return evals, vecs.reshape((B, numeig) + tuple(shape))
 
 
 def _coeff_parts(coeff, B: int, dtype: torch.dtype, device):

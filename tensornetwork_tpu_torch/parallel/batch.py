@@ -6,7 +6,10 @@ Counterpart of the DMRG and TDVP part of
 The instances are a leading dimension of every tensor; in the local solve
 that dimension is the fused-Lanczos kernel's grid (one block per
 instance).  There is one route: the JAX package's paired/unpaired split
-and its VMEM admission exist for the TPU only.
+and its VMEM admission exist for the TPU only.  Its paired entry points
+(:func:`batched_one_site_sweep_paired`, :func:`batched_two_site_sweep_paired`)
+keep their names, defaults and the check that ``pair`` divides the batch,
+and compute on that one route.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ def batched_one_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
                            reorth: bool = False,
                            lanczos_impl: str = "fused",
                            epilogue_impl: Optional[str] = None,
-                           renvs=None) -> _dmrg.SweepResult:
+                           renvs=None,
+                           matvec_prec: Optional[str] = None
+                           ) -> _dmrg.SweepResult:
     """One one-site sweep over a batch As_batch (B, N, chi, d, chi) with
     one MPO shared by the batch.  Returns a batched
     :class:`~tensornetwork_tpu_torch.models.dmrg.SweepResult` (energy (B,),
@@ -38,13 +43,41 @@ def batched_one_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
     single-instance choices.  ``epilogue_impl`` (default
     :data:`~tensornetwork_tpu_torch.models.dmrg.EPILOGUE_IMPL`, ``"xla"``):
     ``"fused"`` runs each site's polar gauge and environment growth as one
-    launch of the fused epilogue kernel, the batch on its grid."""
+    launch of the fused epilogue kernel, the batch on its grid.
+    ``matvec_prec`` is the JAX package's argument, accepted and ignored
+    (see :data:`~tensornetwork_tpu_torch.models.dmrg.MATVEC_PRECISION`)."""
     if epilogue_impl is None:
         epilogue_impl = _dmrg.EPILOGUE_IMPL
     with highest_precision():
         return _dmrg._one_site_sweep_impl(
             As_batch, Ws, vL, vR, num_krylov_vecs, None, qr_impl, ritz_impl,
             reorth, lanczos_impl, epilogue_impl, renvs)
+
+
+def _check_pair(B: int, pair: int) -> None:
+    if B % pair:
+        raise ValueError(f"batch {B} not divisible by pair={pair}")
+
+
+def batched_one_site_sweep_paired(As_batch, Ws, vL, vR,
+                                  num_krylov_vecs: int = 10,
+                                  qr_impl: str = "polar",
+                                  ritz_impl: str = "power",
+                                  pair: int = 2,
+                                  renvs=None) -> _dmrg.SweepResult:
+    """The JAX package's paired one-site entry point: its defaults
+    (``qr_impl="polar"``, ``ritz_impl="power"``, ``pair=2``), its
+    semantics (the fused Lanczos, no reorthogonalisation, the plain site
+    epilogue) and its ``ValueError`` when ``pair`` does not divide the
+    batch.  ``pair`` packs that many instances into one TPU program; on
+    the card every instance has its own block of K2's grid whatever
+    ``pair`` is, so this is :func:`batched_one_site_sweep` with those
+    settings."""
+    _check_pair(As_batch.shape[0], pair)
+    return batched_one_site_sweep(
+        As_batch, Ws, vL, vR, num_krylov_vecs=num_krylov_vecs,
+        qr_impl=qr_impl, ritz_impl=ritz_impl, reorth=False,
+        lanczos_impl="fused", epilogue_impl="xla", renvs=renvs)
 
 
 def batched_one_site_sweep_multi_mpo(As_batch, Ws_batch, vL, vR,
@@ -71,7 +104,9 @@ def batched_two_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
                            trunc_iters: int = 2,
                            trunc_orth: str = "polar",
                            trunc_polar_fast=None,
-                           renvs=None) -> _dmrg.SweepResult:
+                           renvs=None,
+                           matvec_prec: Optional[str] = None
+                           ) -> _dmrg.SweepResult:
     """One two-site sweep over a batch As_batch (B, N, chi, d, chi) with
     one MPO shared by the batch.  Returns a batched
     :class:`~tensornetwork_tpu_torch.models.dmrg.SweepResult` (energy (B,),
@@ -82,12 +117,36 @@ def batched_two_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
     fused Lanczos (K2 at nt = d*d for the resident tier, the batch on its
     grid), and bond truncation by 2 warm-started subspace iterations with
     the Newton-Schulz polar orthonormaliser.  Pass ``trunc_impl="svd"``
-    for the exact masked SVD."""
+    for the exact masked SVD.  ``matvec_prec`` as in
+    :func:`batched_one_site_sweep`."""
     with highest_precision():
         return _dmrg._two_site_sweep_impl(
             As_batch, Ws, vL, vR, num_krylov_vecs, None, qr_impl, ritz_impl,
             reorth, lanczos_impl, trunc_impl, trunc_iters, trunc_orth,
             trunc_polar_fast, renvs)
+
+
+def batched_two_site_sweep_paired(As_batch, Ws, vL, vR,
+                                  num_krylov_vecs: int = 10,
+                                  qr_impl: str = "polar",
+                                  ritz_impl: str = "power",
+                                  trunc_iters: int = 2,
+                                  trunc_orth: str = "polar",
+                                  pair: int = 2,
+                                  renvs=None) -> _dmrg.SweepResult:
+    """The JAX package's paired two-site entry point: its defaults
+    (``qr_impl="polar"``, ``ritz_impl="power"``, ``trunc_iters=2``,
+    ``trunc_orth="polar"``, ``pair=2``), its semantics (the fused Lanczos
+    at nt = d*d, no reorthogonalisation, the subspace truncation only) and
+    its ``ValueError`` when ``pair`` does not divide the batch.  As
+    :func:`batched_one_site_sweep_paired`, ``pair`` has no meaning on the
+    card: this is :func:`batched_two_site_sweep` with those settings."""
+    _check_pair(As_batch.shape[0], pair)
+    return batched_two_site_sweep(
+        As_batch, Ws, vL, vR, num_krylov_vecs=num_krylov_vecs,
+        qr_impl=qr_impl, ritz_impl=ritz_impl, reorth=False,
+        lanczos_impl="fused", trunc_impl="subspace",
+        trunc_iters=trunc_iters, trunc_orth=trunc_orth, renvs=renvs)
 
 
 class BatchedDMRG:

@@ -895,3 +895,86 @@ def test_tdvp_complex64_product_state_on_the_card(cuda, two_site):
     a, b = dense(got), dense(ref)
     overlap = float(torch.vdot(a, b).abs() / (a.norm() * b.norm()))
     assert overlap >= 1 - 1e-4
+
+
+# The MPS object layer: the card against the CPU in f64/complex128.  The
+# same algorithms (cuSOLVER against LAPACK for the factorizations) on the
+# same inputs: ~1e-13 seen where gauge-free.
+OBJ_TOL = 1e-10
+
+
+def _mps_stack(dtype, N=6, chi=8, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((N, chi, 2, chi))
+    if dtype.is_complex:
+        a = a + 1j * rng.standard_normal(a.shape)
+    return torch.as_tensor(a / np.sqrt(2 * chi), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_finite_mps_measurements_on_the_card_match_cpu(cuda, dtype):
+    from tensornetwork_tpu_torch.models.mps import FiniteMPS
+    X, Z = np.array([[0.0, 1.0], [1.0, 0.0]]), np.diag([1.0, -1.0])
+    out = {}
+    for dev in ("cpu", cuda):
+        m = FiniteMPS(_mps_stack(dtype).to(dev))
+        assert m.device.type == torch.device(dev).type
+        norm = m.position(3)
+        # the deviation from canonical form is rounding on both sides
+        assert float(m.check_canonical()) < 1e-12
+        out[str(dev)] = [norm,
+                         torch.stack(m.measure_local_operator([Z, X] * 3,
+                                                              range(6))),
+                         torch.stack(m.measure_two_body_correlator(
+                             X, X, 2, range(6))), m.to_dense()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _rel(a.cpu(), b) < OBJ_TOL
+
+
+@pytest.mark.parametrize("imaginary", [False, True])
+def test_tebd_sweep_on_the_card_matches_cpu(cuda, imaginary):
+    from tensornetwork_tpu_torch.models import tebd
+    from tensornetwork_tpu_torch.models.mps import FiniteMPS
+    X, Z = np.array([[0.0, 1.0], [1.0, 0.0]]), np.diag([1.0, -1.0])
+    h2 = -np.kron(X, X) - 0.5 * (np.kron(Z, np.eye(2)) + np.kron(np.eye(2), Z))
+    out = {}
+    for dev in ("cpu", cuda):
+        m = FiniteMPS(_mps_stack(torch.complex128, seed=1).to(dev))
+        gate = tebd.trotter_gate(h2, 0.1, imaginary=imaginary, device=dev)
+        w = tebd.tebd_sweep(m, gate, max_singular_values=6)
+        out[str(dev)] = (w, m.to_dense(), tebd.measure_energy(m, h2))
+    assert abs(out["cuda"][0] - out["cpu"][0]) < OBJ_TOL
+    assert _rel(out["cuda"][1].cpu(), out["cpu"][1]) < OBJ_TOL
+    assert abs(out["cuda"][2] - out["cpu"][2]) < OBJ_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_infinite_mps_canonicalize_on_the_card_matches_cpu(cuda, dtype):
+    from tensornetwork_tpu_torch.models.infinite_mps import InfiniteMPS
+    out = {}
+    for dev in ("cpu", cuda):
+        m = InfiniteMPS(_mps_stack(dtype, N=2, chi=6, seed=2).to(dev))
+        eta, r = m.canonicalize()
+        out[str(dev)] = (eta, r, m.As, m.check_right_canonical())
+    assert abs(out["cuda"][0] - out["cpu"][0]) < OBJ_TOL
+    assert _rel(out["cuda"][1].cpu(), out["cpu"][1]) < 1e-8
+    assert _rel(out["cuda"][2].cpu(), out["cpu"][2]) < 1e-8
+    assert out["cuda"][3] < 1e-10
+
+
+def test_mera_iteration_on_the_card_matches_cpu(cuda):
+    from tensornetwork_tpu_torch.models import mera
+    rng = np.random.default_rng(3)
+    us = [np.linalg.qr(rng.standard_normal((16, 16)))[0].reshape((4,) * 4)]
+    ws = [np.linalg.qr(rng.standard_normal((16, 4)))[0].T.reshape((4,) * 3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        state = mera.MERAState([torch.as_tensor(u, device=dev) for u in us],
+                               [torch.as_tensor(w, device=dev) for w in ws])
+        h = mera.blocked_ising_hamiltonian(device=dev)
+        out[str(dev)] = mera.optimize_mera(h, state, num_iterations=1,
+                                           num_top_iters=4)
+    (sc, ec), (sp, ep) = out["cuda"], out["cpu"]
+    assert abs(ec - ep) < OBJ_TOL
+    for a, b in zip(sc.us + sc.ws, sp.us + sp.ws):
+        assert _rel(a.cpu(), b) < 1e-8

@@ -3,11 +3,13 @@
 The JAX package's batched accelerator route packs two instances into each
 program of its fused two-site Lanczos kernel (``batched_two_site_sweep_
 paired``, pair=2); here it runs with that kernel in interpret mode, which
-compiles for ~40 s, hence a file of its own.  The port has one route, the
-batch on K2's grid, run here through the kernel's plain-PyTorch twin.
+compiles for ~40 s, hence a file of its own, and a module fixture that
+both tests share.  The port has one route, the batch on K2's grid, run here
+through the kernel's plain-PyTorch twin; its paired name computes on it.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tensornetwork_tpu.models import mpo as jmpo
@@ -22,14 +24,38 @@ from tensornetwork_tpu_torch.parallel import batch as tbatch
 POWER_ENERGY_RTOL, POWER_TERR_TOL = 1e-6, 1e-6
 
 
-def test_batched_two_site_sweep_matches_the_paired_route(rng):
-    B, N, chi, m = 4, 6, 8, 6
-    As0 = rng.standard_normal((B, N, chi, 2, chi)) / np.sqrt(2 * chi)
+B, N, CHI, M_KRYLOV = 4, 6, 8, 6
+
+
+@pytest.fixture(scope="module")
+def paired():
+    """The JAX package's paired sweep (its one slow call), shared."""
+    As0 = np.random.default_rng(42).standard_normal(
+        (B, N, CHI, 2, CHI)) / np.sqrt(2 * CHI)
     jm = jmpo.FiniteTFI(1.0, 0.9, N=N, dtype=jnp.float64)
     tm = interop.mpo_from_numpy(np.asarray(jm.Ws), np.asarray(jm.vL),
                                 np.asarray(jm.vR), device="cpu")
     jres = jbatch.batched_two_site_sweep_paired(
-        jnp.asarray(As0), jm.Ws, jm.vL, jm.vR, num_krylov_vecs=m, pair=2)
+        jnp.asarray(As0), jm.Ws, jm.vL, jm.vR, num_krylov_vecs=M_KRYLOV,
+        pair=2)
+    return As0, tm, jres
+
+
+def test_batched_two_site_sweep_paired_matches_the_jax_paired_route(paired):
+    As0, tm, jres = paired
+    tres = tbatch.batched_two_site_sweep_paired(
+        torch.from_numpy(As0), tm.Ws, tm.vL, tm.vR, num_krylov_vecs=M_KRYLOV,
+        pair=2)
+    np.testing.assert_allclose(tres.energy.numpy(), np.asarray(jres.energy),
+                               rtol=POWER_ENERGY_RTOL)
+    np.testing.assert_allclose(tres.trunc_err.numpy(),
+                               np.asarray(jres.trunc_err), atol=POWER_TERR_TOL)
+    assert tres.renvs.shape == jres.renvs.shape
+
+
+def test_batched_two_site_sweep_matches_the_paired_route(paired):
+    As0, tm, jres = paired
+    chi, m = CHI, M_KRYLOV
     tres = tbatch.batched_two_site_sweep(torch.from_numpy(As0), tm.Ws, tm.vL,
                                          tm.vR, num_krylov_vecs=m)
     # the paired route's defaults are the port's batched ones
