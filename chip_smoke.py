@@ -24,7 +24,16 @@ solves give it (B=1, chi=64, m=25: nt=2 on <3,2>, nt=1 on <0,0>);
 vumps_iteration's rate from a random chi=64 f32 state; vumps() from random
 to a gauge error of 1e-4 in f32 and 1e-5 in f64 against the exact energy
 density, and the f64 state's correlation length; then iTDVP of that state
-in complex128 (no kernel), stationary in energy and <Z>.  Then the batched
+in complex128 (no kernel), stationary in energy and <Z>.  Then ncon and
+the graph core, where no kernel runs: the reference's README network (an
+N=20, chi=32 MPS inner product in f32 and f64, by the zip con_order,
+"greedy" and, at N=5, "optimal") against a float64 loop of transfer
+matrices; B=256 MPS norms at N=32, chi=128, f32 as one batched ncon,
+beside K6 on the same operands; the N=20 network as Nodes through
+contractors.greedy and auto, a 4x4 double-layer PEPS norm through the
+native path solver (built by g++ there) and greedy, split_node's p50
+latency at 256x256 and 1024x1024, the QR/RQ/full-SVD splits and the JSON
+round trip.  Then the batched
 MPS transfer chain at bench.py's
 shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
 "resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
@@ -211,6 +220,29 @@ MERA_LAYERS, MERA_ITERS = 3, 60
 # split-complex path (K2 on <0,0>, 4N launches a sweep)
 EXPRESS_SWEEPS = 4
 SC_TDVP_DT, SC_TDVP_SWEEPS = 0.05, 2
+# ncon and the graph core (no kernel on these paths).  The reference's
+# README network: <psi|psi> of a random MPS, N=20, chi=32, d=2, each site
+# scaled by 1/sqrt(d chi_right) so that the f32 value is O(1) (unscaled it
+# is ~5e37, within 10x of f32 overflow); checked against a float64 loop
+# of transfer matrices (relative 1e-5 in f32, 1e-12 in f64).
+# con_order="optimal" is the exhaustive search of the JAX package
+# (opt_einsum's "optimal"): ~15x the host time a site (0.09 s at N=5 on a
+# CPU), so it runs at NCON_OPTIMAL_N.
+NCON_N, NCON_CHI, NCON_REPS, NCON_OPTIMAL_N = 20, 32, 20, 5
+NCON_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# BASELINE.json's "batched bond-dim-128 MPS contractions": B=256 norms at
+# N=32, chi=128, d=2, f32 (1.07 GB an MPS), one ncon with a batch label
+# on every site tensor; against a batched float64 loop (relative 1e-4)
+NCON_B, NCON_B_N, NCON_B_CHI, NCON_B_RTOL = 256, 32, 128, 1e-4
+# graph core: a 4x4 double-layer PEPS norm (D=2, bonds D^2 = 4; 16
+# tensors, so contractors.auto takes the native subset-DP solver;
+# contractors.optimal's exhaustive search cannot finish at 16), against a
+# row-by-row float64 contraction; split_node p50 latency over SPLIT_REPS
+# calls on two-site tensors (chi, d, d, chi) of rank chi, f32, as
+# (chi d) x (d chi) matrices, truncated to chi (exact at that rank:
+# reconstruction within SPLIT_RTOL)
+PEPS_L, PEPS_D = 4, 2
+SPLIT_CHIS, SPLIT_REPS, SPLIT_RTOL = (128, 512), 20, 1e-5
 
 
 def emit(**kw):
@@ -2363,6 +2395,368 @@ def check_k5_resident(launches, routes):
           f" launches, routes {routes}")
 
 
+def mps_inner_network(n):
+    """<psi|psi> of an open MPS in ncon labels: ket site i (l_i, s_i,
+    l_i+1), bra site i (m_i, s_i, m_i+1), the two end bonds shared by ket
+    and bra; and the zip con_order (each site's physical label, then the
+    ket and bra bonds to the next site)."""
+    ket = [[i + 1, 2 * n + 3 + i, i + 2] for i in range(n)]
+    bra = [[n + 2 + i, 2 * n + 3 + i, n + 3 + i] for i in range(n)]
+    ket[0][0] = bra[0][0] = 3 * n + 3
+    ket[-1][2] = bra[-1][2] = 3 * n + 4
+    order = [3 * n + 3]
+    for i in range(n):
+        order.append(2 * n + 3 + i)
+        if i < n - 1:
+            order += [i + 2, n + 3 + i]
+    return ket + bra, order + [3 * n + 4]
+
+
+def random_mps_sites(torch, n, chi, dtype, seed):
+    """Open-MPS sites (1, d, chi) ... (chi, d, 1), each scaled by
+    1/sqrt(d chi_right): <psi|psi> is 1 in expectation."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    sites = []
+    for i in range(n):
+        left, right = 1 if i == 0 else chi, 1 if i == n - 1 else chi
+        a = torch.randn((left, D, right), generator=g, device=DEV,
+                        dtype=torch.float64) / np.sqrt(D * right)
+        sites.append(a.to(dtype))
+    return sites
+
+
+def mps_norm_f64(torch, sites):
+    """<psi|psi> by a float64 loop of transfer matrices."""
+    E = torch.ones((1, 1), dtype=torch.float64, device=sites[0].device)
+    for a in sites:
+        a = a.double()
+        E = torch.einsum("ac,asb,csd->bd", E, a, a)
+    return float(E[0, 0])
+
+
+def median_ms(torch, fn, reps):
+    """(median device ms by CUDA events, median host wall ms to the
+    synchronised result) of one call of fn, over reps calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    dev, wall = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return statistics.median(dev), statistics.median(wall)
+
+
+def ncon_mps_inner_phase(torch, card):
+    """The reference's README network through ncon, in f32 and f64, with
+    the zip con_order and con_order="greedy" at N=20 and "optimal" at
+    NCON_OPTIMAL_N; each against the float64 transfer-matrix loop."""
+    import tensornetwork_tpu_torch as tn
+    from tensornetwork_tpu_torch.ops import paths
+    cases, values = [], {}
+    for dt in ("float32", "float64"):
+        dtype = getattr(torch, dt)
+        for method, n in (("zip", NCON_N), ("greedy", NCON_N),
+                          ("optimal", NCON_OPTIMAL_N)):
+            sites = random_mps_sites(torch, n, NCON_CHI, dtype, 11)
+            ref = mps_norm_f64(torch, sites)
+            structure, zip_order = mps_inner_network(n)
+            shapes = [tuple(a.shape) for a in sites] * 2
+            t0 = time.perf_counter()
+            order = (zip_order if method == "zip" else
+                     paths.solve_con_order(structure, shapes, method))
+            solve_s = time.perf_counter() - t0
+            # the value as users call it (the order solved inside ncon);
+            # the times per contraction with the solved order
+            out = tn.ncon(sites + sites, structure,
+                          con_order=zip_order if method == "zip" else method)
+            value = float(out)
+            rel = abs(value - ref) / abs(ref)
+            dev_ms, wall_ms = median_ms(
+                torch, lambda: tn.ncon(sites + sites, structure,
+                                       con_order=order), NCON_REPS)
+            cases.append(dict(
+                dtype=dt, con_order=method, n=n, value=value, ref_f64=ref,
+                rel_err=rel, ms_cuda_events=dev_ms, ms_wall=wall_ms,
+                path_solve_s=solve_s,
+                path_flops=paths.path_cost(structure, shapes, order)))
+            if method == "zip":  # the device's share of one contraction
+                busy = device_busy_ms(torch, lambda: [
+                    tn.ncon(sites + sites, structure, con_order=order)
+                    for _ in range(NCON_REPS)]) / NCON_REPS
+                cases[-1].update(device_busy_ms=busy,
+                                 device_idle_share=1 - busy / wall_ms)
+            values[dt, method] = value
+            check(np.isfinite(value) and out.shape == () and
+                  rel <= NCON_RTOL[dt],
+                  f"ncon MPS inner product ({dt}, {method}, N={n}): {value} "
+                  f"against {ref}, relative {rel}")
+    emit(phase="ncon_mps_inner", card=card, chi=NCON_CHI, d=D, cases=cases)
+    return values
+
+
+def ncon_batched_phase(torch, card):
+    """B=256 norms at N=32, chi=128, f32 as one ncon: the batch label b
+    on every site tensor (positive, on 64 operands: a batch axis until
+    the last pair) and on a (B, B) identity that leaves it open.  The end
+    bonds are closed (E0 = I, a trace at the end), so that the same
+    stacked operands feed K6 (transfer_chain, f32: route "tiled")."""
+    import tensornetwork_tpu_torch as tn
+    from tensornetwork_tpu_torch.ops import kernels as K
+    B, n, chi = NCON_B, NCON_B_N, NCON_B_CHI
+    g = torch.Generator(device=DEV).manual_seed(12)
+    As = torch.randn((B, n, chi, D, chi), generator=g, device=DEV) / \
+        np.sqrt(D * chi)
+    sites = [As[:, i] for i in range(n)]
+    b, left, right = 1, 2, 3  # the batch label and the two end bonds
+    ket = [[b, left if i == 0 else 4 + i, 4 + n + i,
+            right if i == n - 1 else 5 + i] for i in range(n)]
+    bra = [[b, left if i == 0 else 4 + 2 * n + i, 4 + n + i,
+            right if i == n - 1 else 5 + 2 * n + i] for i in range(n)]
+    order = [left]
+    for i in range(n):
+        order.append(4 + n + i)
+        if i < n - 1:
+            order += [5 + i, 5 + 2 * n + i]
+    order += [right, b]
+    eye_b = torch.eye(B, device=DEV)
+
+    def run():
+        return tn.ncon(sites + sites + [eye_b], ket + bra + [[b, -1]],
+                       con_order=order)
+
+    out = run()
+    # E'[b, p] = sum_{a, c, s} E[a, c] A[a, s, b] A[c, s, p], in float64
+    E = torch.eye(chi, dtype=torch.float64, device=DEV).expand(B, chi, chi)
+    for i in range(n):
+        a = sites[i].double()
+        Y = torch.bmm(E.transpose(1, 2), a.reshape(B, chi, D * chi))
+        E = torch.bmm(Y.reshape(B, chi * D, chi).transpose(1, 2),
+                      a.reshape(B, chi * D, chi))
+    ref = torch.diagonal(E, dim1=1, dim2=2).sum(-1)
+    rel = float(((out.double() - ref).abs() / ref.abs()).max())
+    dev_ms, wall_ms = median_ms(torch, run, 5)
+    flops = 4 * D * chi ** 3 * n * B
+    bound_ms = flops / FP32_PEAK * 1e3
+    E0 = torch.eye(chi, device=DEV).expand(B, chi, chi).contiguous()
+    K.reset_launch_counts()
+    k6 = torch.diagonal(K.transfer_chain(As, E0), dim1=1, dim2=2).sum(-1)
+    k6_launches = {k: v for k, v in K.route_counts.items() if v}
+    k6_ms = cuda_ms(torch, lambda: K.transfer_chain(As, E0), 3)
+    busy, top = device_busy_ms(torch, run, top=4)
+    emit(phase="ncon_batched", card=card, batch=B, n=n, chi=chi, d=D,
+         dtype="float32", stack_gb=As.numel() * 4 / 1e9,
+         device_busy_ms=busy, device_top=top,
+         max_rel_err_f64=rel, ms_cuda_events=dev_ms, ms_wall=wall_ms,
+         flops=flops, tflops_per_s=flops / dev_ms / 1e9,
+         bound_ms_fp32=bound_ms, k6_ms=k6_ms,
+         k6_route_counts=k6_launches,
+         k6_max_rel_diff=float(((k6.double() - ref).abs()
+                                / ref.abs()).max()))
+    check(out.shape == (B,) and bool(torch.isfinite(out).all())
+          and rel <= NCON_B_RTOL,
+          f"batched ncon norms: shape {tuple(out.shape)}, relative {rel}")
+    del As, sites, E, out
+
+
+def mps_nodes(sites):
+    """The ncon_mps_inner network as Nodes: ket and bra sites joined along
+    the chain, by the physical legs and at both ends."""
+    import tensornetwork_tpu_torch as tn
+    ket = [tn.Node(a) for a in sites]
+    bra = [tn.Node(a) for a in sites]
+    for i in range(len(sites) - 1):
+        ket[i][2] ^ ket[i + 1][0]
+        bra[i][2] ^ bra[i + 1][0]
+    for k, b in zip(ket, bra):
+        k[1] ^ b[1]
+    ket[0][0] ^ bra[0][0]
+    ket[-1][2] ^ bra[-1][2]
+    return ket + bra
+
+
+def peps_double_layer(torch, L, Dp, seed):
+    """An L x L PEPS (physical d=2, bonds Dp, uniform random entries) as
+    double-layer tensors with bonds Dp^2 and legs (left, right, up, down)
+    where present, and each tensor's bond labels (h: horizontal, v:
+    vertical)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    tensors, labels = [], []
+    for r in range(L):
+        for c in range(L):
+            legs = [("h", r, c - 1) if c > 0 else None,
+                    ("h", r, c) if c < L - 1 else None,
+                    ("v", r - 1, c) if r > 0 else None,
+                    ("v", r, c) if r < L - 1 else None]
+            legs = [x for x in legs if x is not None]
+            k = len(legs)
+            a = torch.rand((D,) + (Dp,) * k, generator=g, device=DEV,
+                           dtype=torch.float64)
+            dl = torch.tensordot(a, a, dims=([0], [0]))  # ket legs, bra legs
+            perm = [x for i in range(k) for x in (i, i + k)]
+            tensors.append(dl.permute(perm).reshape((Dp * Dp,) * k))
+            labels.append(legs)
+    return tensors, labels
+
+
+def peps_norm_rows_f64(torch, tensors, labels):
+    """The double-layer network contracted by one torch.einsum over the
+    tensors in row-major order (left to right where torch has no path
+    optimizer: row by row)."""
+    ids = {}
+    operands = []
+    for t, legs in zip(tensors, labels):
+        operands += [t, [ids.setdefault(x, len(ids)) for x in legs]]
+    return float(torch.einsum(*operands, []))
+
+
+def pair_path_flops(input_sets, sizes, path):
+    """2 x the index-space size of every pairwise step of a path."""
+    sets = [set(x) for x in input_sets]
+    total = 0
+    for i, j in path:
+        union = sets[i] | sets[j]
+        total += 2 * int(np.prod([sizes[e] for e in union], dtype=np.float64))
+        rest = set().union(*(x for k, x in enumerate(sets)
+                             if k not in (i, j)))
+        sets = [x for k, x in enumerate(sets) if k not in (i, j)] + [
+            union & rest]
+    return total
+
+
+def peps_nodes(tensors, labels):
+    import tensornetwork_tpu_torch as tn
+    nodes = [tn.Node(t) for t in tensors]
+    where = {}
+    for node, legs in zip(nodes, labels):
+        for axis, leg in enumerate(legs):
+            where.setdefault(leg, []).append(node[axis])
+    for a, b in where.values():
+        a ^ b
+    return nodes
+
+
+def split_latency(torch, chi):
+    """split_node on a (chi, d, d, chi) two-site tensor of rank chi, f32,
+    as (chi d) x (d chi), truncated to max_singular_values=chi: the p50
+    host latency (to the synchronised factors) and the reconstruction."""
+    import tensornetwork_tpu_torch as tn
+    g = torch.Generator(device=DEV).manual_seed(chi)
+    A, B = (torch.randn((chi, D, chi), generator=g, device=DEV)
+            / np.sqrt(chi) for _ in range(2))
+    theta = torch.tensordot(A, B, dims=([2], [0]))
+
+    def split(fn, **kw):
+        node = tn.Node(theta)
+        edges = list(node.edges)
+        out = fn(node, edges[:2], edges[2:], **kw)
+        return edges, [x for x in out if isinstance(x, tn.AbstractNode)], out
+
+    def rebuilt(edges, parts):
+        merged = parts[0]
+        for part in parts[1:]:
+            merged = tn.contract_between(merged, part)
+        merged.reorder_edges(edges)
+        return float(torch.linalg.vector_norm(merged.tensor - theta)
+                     / torch.linalg.vector_norm(theta))
+
+    times = []
+    t_end = time.perf_counter() + 10.0
+    while len(times) < SPLIT_REPS and (len(times) < 5
+                                       or time.perf_counter() < t_end):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        edges, parts, out = split(tn.split_node, max_singular_values=chi)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kept = parts[0].shape[-1]
+    res = dict(chi=chi, matrix=[chi * D, D * chi], calls=len(times),
+               p50_ms=statistics.median(times), p90_ms=float(
+                   np.percentile(times, 90)), first_ms=times[0],
+               kept=kept, discarded=int(out[-1].shape[0]),
+               rel_err=rebuilt(edges, parts))
+    check(kept <= chi and res["rel_err"] <= SPLIT_RTOL,
+          f"split_node at chi={chi}: kept {kept}, reconstruction "
+          f"{res['rel_err']}")
+    for name in ("split_node_qr", "split_node_rq", "split_node_full_svd"):
+        edges, parts, _ = split(getattr(tn, name))
+        res[name + "_rel_err"] = err = rebuilt(edges, parts)
+        check(err <= SPLIT_RTOL, f"{name} at chi={chi}: reconstruction {err}")
+    return res
+
+
+def graph_core_phase(torch, card, values):
+    """The ncon_mps_inner network as Nodes through contractors.greedy and
+    contractors.auto, each value against ncon's; the 4x4 double-layer
+    PEPS norm through contractors.auto (the native subset-DP solver at 16
+    tensors) and contractors.greedy against a row-by-row float64
+    contraction; split_node's p50 latency and the QR, RQ and full-SVD
+    splits; the JSON round trip on the card."""
+    import tensornetwork_tpu_torch as tn
+    from tensornetwork_tpu_torch import contractors, native
+    chains = []
+    for dt in ("float32", "float64"):
+        sites = random_mps_sites(torch, NCON_N, NCON_CHI, getattr(torch, dt),
+                                 11)
+        for name in ("greedy", "auto"):
+            nodes = mps_nodes(sites)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = float(getattr(contractors, name)(nodes).tensor)
+            wall_s = time.perf_counter() - t0
+            ref = values[dt, "zip"]
+            rel = abs(value - ref) / abs(ref)
+            chains.append(dict(dtype=dt, contractor=name, value=value,
+                               rel_to_ncon=rel, wall_s=wall_s))
+            check(rel <= NCON_RTOL[dt],
+                  f"contractors.{name} ({dt}): {value} against ncon's {ref}")
+    t0 = time.perf_counter()
+    native.load()  # g++ builds the solver here, at its first use
+    build_s = time.perf_counter() - t0
+    tensors, labels = peps_double_layer(torch, PEPS_L, PEPS_D, 13)
+    ref = peps_norm_rows_f64(torch, tensors, labels)
+    peps = dict(L=PEPS_L, D=PEPS_D, tensors=len(tensors), ref_f64=ref,
+                native_build_s=build_s)
+    for name in ("auto", "greedy"):
+        nodes = peps_nodes(tensors, labels)
+        sets = [{id(e) for e in n.edges} for n in nodes]
+        sizes = {id(e): e.dimension for n in nodes for e in n.edges}
+        t0 = time.perf_counter()
+        path = contractors.path_solver(name, nodes)
+        peps[name + "_solve_s"] = time.perf_counter() - t0
+        peps[name + "_path_flops"] = pair_path_flops(sets, sizes, path)
+        t0 = time.perf_counter()
+        value = float(getattr(contractors, name)(nodes).tensor)
+        peps[name + "_wall_s"] = time.perf_counter() - t0
+        peps[name + "_rel_err"] = rel = abs(value - ref) / abs(ref)
+        check(rel <= 1e-10, f"PEPS norm through contractors.{name}: "
+              f"{value} against {ref}")
+    splits = [split_latency(torch, chi) for chi in SPLIT_CHIS]
+    a = tn.Node(torch.randn((3, 4), device=DEV), name="a", axis_names=["x",
+                                                                    "y"])
+    b = tn.Node(torch.randn((4, 5), device=DEV, dtype=torch.float64),
+                name="b")
+    bond = a[1] ^ b[0]
+    text = tn.nodes_to_json([a, b], edge_binding={"bond": bond})
+    loaded, bindings = tn.nodes_from_json(text)
+    same = all(x.tensor.device == y.tensor.device
+               and x.tensor.dtype == y.tensor.dtype
+               and torch.equal(x.tensor, y.tensor)
+               for x, y in zip(loaded, [a, b]))
+    same = same and [n.name for n in loaded] == ["a", "b"] and \
+        loaded[0].axis_names == ["x", "y"] and \
+        bindings["bond"][0].node2 is loaded[1]
+    emit(phase="graph_core", card=card, mps_chain=chains, peps=peps,
+         split_node=splits, json_round_trip_same_bits=same)
+    check(same, "nodes_to_json / nodes_from_json changed the nodes")
+
+
 _KP = "tensornetwork_tpu/ops/kernels.py:"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("heff_matvec", "heff_matvec.cu", _KP + "48"),
@@ -2497,6 +2891,17 @@ def main():
     check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
     launches["fused_lanczos"] += counts["fused_lanczos"]
     del ground, state64
+    torch.cuda.empty_cache()
+
+    # ncon and the graph core: no kernel runs on these paths
+    K.reset_launch_counts()
+    values = ncon_mps_inner_phase(torch, card)
+    graph_core_phase(torch, card, values)
+    counts = dict(K.launch_counts)
+    emit(phase="ncon_graph_core_launches", **counts)
+    check(not any(counts.values()),
+          f"a kernel launched on the ncon / graph-core path: {counts}")
+    ncon_batched_phase(torch, card)
     torch.cuda.empty_cache()
 
     # the large-chi paths, each with its own counts

@@ -9,7 +9,14 @@ transfer-matrix correlation length on the restarted Arnoldi of
 ``ops.krylov``; and the MPS object layer: ``FiniteMPS`` (canonical forms,
 measurements, gates; ``FiniteDMRG`` and ``TDVP`` take it and write their
 result back), TEBD (``models.tebd``), ``InfiniteMPS`` and the binary MERA
-(``models.mera``).  The
+(``models.mera``); and the library's contraction surface: ``ncon``
+(``ops.ncon``, a host-compiled plan replayed eagerly), the contraction-path
+solvers (``ops.paths``: optimal, greedy and branch written in the port, and
+an exact subset-DP solver in C++, ``native/``, built by g++ at first
+use), the Node/Edge graph core (``core``: nodes, edges, contraction,
+splitting, JSON in the JAX package's format), the ``Tensor`` API and its
+linear algebra, the contractors (``contractors``) and the ``Config``
+stack.  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
 CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
@@ -22,7 +29,37 @@ and ctypes, never JAX.  Entry points run on the CUDA card unless handed
 CPU tensors or ``device="cpu"``.
 """
 from tensornetwork_tpu_torch import config, interop
-from tensornetwork_tpu_torch.config import default_device, highest_precision
+from tensornetwork_tpu_torch.config import (
+    Config, DefaultBackend, config_context, default_device, get_config,
+    get_default_backend, highest_precision, set_default_backend)
+from tensornetwork_tpu_torch.ops.ncon import finalize, ncon
+from tensornetwork_tpu_torch.ops import krylov
+from tensornetwork_tpu_torch.ops.decompositions import (
+    MaskedSVD, eigh, rq, svd, tensor_qr as qr)
+# the graph core (reference ``network_components.py`` /
+# ``network_operations.py``)
+from tensornetwork_tpu_torch.core.network import (
+    AbstractNode, CopyNode, Edge, Node, NodeCollection, connect,
+    contract, contract_between, contract_copy_node, contract_parallel,
+    disconnect, flatten_all_edges, flatten_edges, flatten_edges_between,
+    get_all_dangling, get_all_edges, get_all_nondangling, get_neighbors,
+    get_parallel_edges, get_shared_edges, outer_product,
+    outer_product_final_nodes, slice_edge, split_edge)
+from tensornetwork_tpu_torch.core.operations import (
+    check_connected, check_correct, contract_trace_edges, copy,
+    get_all_nodes, get_subgraph_dangling, nodes_from_json, nodes_to_json,
+    reachable, redirect_edge, reduced_density, remove_node,
+    replicate_nodes, split_node, split_node_full_svd, split_node_qr,
+    split_node_rq, switch_backend)
+from tensornetwork_tpu_torch import contractors
+# the functional layer (reference ``tensor.py`` / ``linalg/``)
+from tensornetwork_tpu_torch.core.tensor import NconBuilder, Tensor
+from tensornetwork_tpu_torch.core import linalg, node_linalg
+from tensornetwork_tpu_torch.core.linalg import (
+    abs, conj, cos, diagflat, diagonal, eigs, eigsh_lanczos, einsum, exp,
+    expm, eye, gmres, hconj, inv, kron, log, norm, ones, outer, pivot,
+    randn, random_uniform, reshape, shape, sign, sin, sqrt, take_slice,
+    tensordot, trace, transpose, zeros)
 from tensornetwork_tpu_torch.models.dmrg import (FiniteDMRG, SweepResult,
                                                  one_site_sweep,
                                                  random_mps_stack,

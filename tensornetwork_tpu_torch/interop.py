@@ -9,12 +9,13 @@ cast back to ``torch.bfloat16``, which is exact both ways.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tensornetwork_tpu_torch.config import Device, as_tensor
+from tensornetwork_tpu_torch.core.network import Node
 from tensornetwork_tpu_torch.models.mera import MERAState
 from tensornetwork_tpu_torch.models.mpo import MPO
 from tensornetwork_tpu_torch.models.mps import FiniteMPS
@@ -77,3 +78,14 @@ def mera_state_from_numpy(us, ws, *, device: Optional[Device] = None,
     (``np.asarray`` of each u and w)."""
     return MERAState([_tensor(u, device, dtype) for u in us],
                      [_tensor(w, device, dtype) for w in ws])
+
+
+def nodes_from_numpy(arrays, names: Optional[Sequence[str]] = None, *,
+                     device: Optional[Device] = None,
+                     dtype: Optional[torch.dtype] = None) -> List[Node]:
+    """Unconnected :class:`Node`\\ s holding copies of ``arrays``, named
+    ``names`` if given, so that a network built from the same numpy
+    arrays in both packages starts from the same numbers."""
+    names = [None] * len(arrays) if names is None else list(names)
+    return [Node(_tensor(a, device, dtype), name=n)
+            for a, n in zip(arrays, names)]

@@ -10,8 +10,8 @@ Counterpart of :mod:`tensornetwork_tpu.ops.decompositions`: ``ns_polar``,
 matrices (leading batch dimensions); ``ns_polar``, ``polar_complete`` and
 ``svd_masked`` take complex ones too.
 
-The host-level tensor factorizations :func:`svd`, :func:`rq` and
-:func:`eigh` split one tensor around a pivot axis and keep the JAX
+The host-level tensor factorizations :func:`svd`, :func:`tensor_qr`,
+:func:`rq` and :func:`eigh` split one tensor around a pivot axis and keep the JAX
 package's truncation contract: the discarded singular values are the
 largest tail whose L2 norm is at most ``max_truncation_error`` (times the
 largest singular value when ``relative``), capped by
@@ -470,6 +470,28 @@ def svd(tensor: torch.Tensor, pivot_axis: int = -1,
             max_truncation_error, relative)
     return (u[:, :keep].reshape(left + (keep,)), s[:keep],
             vh[:keep, :].reshape((keep,) + right), s[keep:])
+
+
+def tensor_qr(tensor: torch.Tensor, pivot_axis: int = -1,
+              non_negative_diagonal: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """QR of ``tensor`` split before ``pivot_axis``: ``(q, r)`` with
+    tensor = q @ r, ``q`` of shape left + (k,) with orthonormal columns
+    and ``r`` (k,) + right, k = min(prod(left), prod(right)); Householder
+    QR through :func:`lapack_factor`.  With ``non_negative_diagonal`` the
+    phases of R's diagonal move into Q.  Counterpart of the JAX package's
+    ``qr`` (here :func:`qr` is the gauge split of a stack of panels)."""
+    if pivot_axis < 0:
+        pivot_axis += tensor.dim()
+    matrix, left, right = _to_matrix(tensor, pivot_axis)
+    q, r = lapack_factor(torch.linalg.qr, matrix)
+    if non_negative_diagonal:
+        d = torch.diagonal(r)
+        phase = torch.where(d == 0, torch.ones_like(d), d / d.abs())
+        q = q * torch.conj(phase)[None, :]
+        r = r * phase[:, None]
+    k = q.shape[1]
+    return q.reshape(left + (k,)), r.reshape((k,) + right)
 
 
 def rq(tensor: torch.Tensor, pivot_axis: int = -1,

@@ -124,3 +124,68 @@ def test_every_entry_point_takes_its_argtypes():
             assert params, name
             assert (len(params.group(1).split(","))
                     == len(kernels._ARGTYPES[fn])), name
+
+
+def _port_sources():
+    return sorted((REPO / "tensornetwork_tpu_torch").rglob("*.py"))
+
+
+def test_port_imports_no_opt_einsum():
+    # torch imports opt_einsum by itself where it is installed, so a
+    # sys.modules check cannot tell; the card's machine has none
+    for path in _port_sources() + [REPO / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module or "" for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom)]
+        assert not [m for m in names if m.split(".")[0] == "opt_einsum"], \
+            path
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """No string in the port's code (docstrings aside) names a path in
+    the JAX package's directory: the port keeps its own copies, such as
+    native/pathsolver.cpp."""
+    import re
+
+    component = re.compile(r"(^|[/\\])tensornetwork_tpu([/\\]|$)")
+    for path in _port_sources():
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        bad = [n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and id(n) not in docs and component.search(n.value)]
+        assert not bad, (path, bad)
+    from tensornetwork_tpu_torch import native
+
+    assert native._SRC.parent == REPO / "tensornetwork_tpu_torch" / "native"
+    assert native.BUILD_ROOT == REPO / "tensornetwork_tpu_torch" / "build"
+
+
+def test_graph_core_and_ncon_raise_without_cuda(monkeypatch):
+    from tensornetwork_tpu_torch import (CopyNode, Node, ncon,
+                                         nodes_from_json, nodes_to_json)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.ones((2, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Node(a)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ncon([a, a.T], [(-1, 1), (1, -2)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CopyNode(2, 3).tensor
+    text = nodes_to_json([Node(torch.ones(2, 3))])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nodes_from_json(text)
+    # CPU tensors, or an explicit CPU request, stay on the CPU
+    t = torch.from_numpy(a)
+    assert Node(t).tensor.device.type == "cpu"
+    assert ncon([t, t.T], [(-1, 1), (1, -2)]).device.type == "cpu"
+    assert CopyNode(2, 3, device="cpu").tensor.device.type == "cpu"
+    assert nodes_from_json(text, device="cpu")[0][0].tensor.device.type \
+        == "cpu"
