@@ -33,7 +33,12 @@ beside K6 on the same operands; the N=20 network as Nodes through
 contractors.greedy and auto, a 4x4 double-layer PEPS norm through the
 native path solver (built by g++ there) and greedy, split_node's p50
 latency at 256x256 and 1024x1024, the QR/RQ/full-SVD splits and the JSON
-round trip.  Then the batched
+round trip.  Then block-sparse U(1) DMRG, where no kernel runs either:
+the bucketed executor against the per-sector loop at the chi=1024 middle
+site; BASELINE.json's batched one-site XXZ sweeps at N=32, chi=1024, B=8
+with per-realization couplings (plan build, rate, idle share, device
+events, a two-site sweep, B=32); N=16 and SymmetricFiniteDMRG against
+exact diagonalisation; block-sparse ncon and split_node.  Then the batched
 MPS transfer chain at bench.py's
 shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
 "resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
@@ -1293,22 +1298,31 @@ def single_phase(torch):
               f"{epilogue_impl} epilogue) delta E {de} outside window")
 
 
-def device_busy_ms(torch, fn, top=0):
-    """Sum of device time (kernels, copies) of fn() by torch.profiler; with
-    ``top``, also the ``top`` entries that took the most device time, as
-    [name, ms, count]."""
+def device_rows(torch, fn):
+    """[(device us, name, count)] of fn()'s device events (kernels,
+    copies) by torch.profiler, summed by name from the raw trace (a
+    key_averages() of a sweep's ~3e5 events took about a minute)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us:
-            rows.append((us, ev.key[:60], ev.count))
+    cuda = torch._C._autograd.DeviceType.CUDA
+    sums = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            row = sums.setdefault(ev.name()[:60], [0.0, 0])
+            row[0] += ev.duration_ns() / 1e3
+            row[1] += 1
     del prof
     gc.collect()   # the trace's ~10^5 event objects
+    return [(us, name, n) for name, (us, n) in sums.items() if us]
+
+
+def device_busy_ms(torch, fn, top=0):
+    """Sum of device time (kernels, copies) of fn() by torch.profiler; with
+    ``top``, also the ``top`` entries that took the most device time, as
+    [name, ms, count]."""
+    rows = device_rows(torch, fn)
     total_ms = sum(r[0] for r in rows) / 1e3
     if not top:
         return total_ms
@@ -2757,6 +2771,333 @@ def graph_core_phase(torch, card, values):
     check(same, "nodes_to_json / nodes_from_json changed the nodes")
 
 
+# Block-sparse U(1) DMRG (no kernel on this path: sector GEMMs are cuBLAS
+# under the bucketed executor).  BASELINE.json's headline configuration:
+# batched one-site DMRG of the XXZ chain (u1_xxz_mpo, MPO bond 5), m=10
+# Krylov vectors, f32, chi=1024 at N=32 (bonds 12-20 reach 1024; at N=16
+# the half-filled window caps the largest bond at 236), B=8 realizations,
+# each with its own Jz (Jxy = 1, Bz = 0) drawn from SYM_JZ with seed 0
+# (realization 0 the clean chain), through mpo_data.
+# 1 warm + 3 timed one-site sweeps, one two-site sweep, and B=32 one-site
+# for the rate.  N=16 (B=8, 3 sweeps) and SymmetricFiniteDMRG (two-site,
+# chi=64, both engines, 1 sweep) against exact diagonalisation in the
+# half-filled sector (12,870 states, scipy sparse, f64), in the window
+# [DE_LO, DE_HI] of the f32 sweeps.
+SYM_N, SYM_CHI, SYM_B, SYM_B_RATE, SYM_TIMED = 32, 1024, 8, 32, 3
+SYM_JZ = (0.8, 1.2)
+SYM_ED_N, SYM_ED_SWEEPS, SYM_SINGLE_CHI, SYM_SINGLE_SWEEPS = 16, 3, 64, 1
+# The executor against the per-sector loop, both f32 with TF32 off: the
+# same products summed in other orders
+SYM_ENGINE_RTOL = 1e-5
+
+
+def sector_ground_energy(n, jz, jxy=1.0):
+    """Lowest eigenvalue of the open XXZ chain (H = sum Jz Sz Sz + Jxy/2
+    (S+S- + S-S+)) in the sector of n/2 down spins, by scipy's sparse
+    eigsh in f64."""
+    import itertools
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    states = np.array(sorted(sum(1 << i for i in c) for c in
+                             itertools.combinations(range(n), n // 2)))
+    bits = (states[:, None] >> np.arange(n)) & 1
+    sz = 0.5 - bits
+    rows, cols = [np.arange(len(states))], [np.arange(len(states))]
+    vals = [jz * (sz[:, :-1] * sz[:, 1:]).sum(1)]
+    for i in range(n - 1):
+        src = np.nonzero(bits[:, i] != bits[:, i + 1])[0]
+        rows.append(np.searchsorted(states,
+                                    states[src] ^ (3 << i)))
+        cols.append(src)
+        vals.append(np.full(len(src), 0.5 * jxy))
+    H = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                              np.concatenate(cols))),
+                      shape=(len(states),) * 2)
+    return float(spla.eigsh(H, k=1, which="SA")[0][0]), len(states)
+
+
+def sym_couplings(B):
+    """Jz of each realization: the clean chain first, then seeded draws."""
+    jz = np.random.default_rng(0).uniform(*SYM_JZ, B)
+    jz[0] = 1.0
+    return jz
+
+
+def sym_setup(torch, n, chi, B, seed=0):
+    """The skeleton, B random data stacks and the per-realization MPO data
+    (Jz from sym_couplings), f32 on the card."""
+    from tensornetwork_tpu_torch.blocksparse import batched
+    from tensornetwork_tpu_torch.models.symmetric_dmrg import u1_xxz_mpo
+    skel = batched.uniform_skeleton_mps(n, chi, dtype=torch.float32,
+                                        device=DEV)
+    data = batched.random_data_batch(skel, B, seed=seed, device=DEV)
+    jz = sym_couplings(B)
+    mpos = [u1_xxz_mpo(j, 1.0, 0.0, n, dtype=torch.float32, device=DEV)
+            for j in jz]
+    mpo_data = [torch.stack([m[i].data for m in mpos]) for i in range(n)]
+    return skel, data, mpos[0], mpo_data, jz
+
+
+def bs_engine_phase(torch):
+    """The three matvec contractions at the chi=1024 middle site with B=8
+    (f32, TF32 off): the bucketed executor against the per-sector loop
+    (tensordot on each instance), times by CUDA events, TFLOP/s against
+    the fp32 bound, padded beside true flops."""
+    from tensornetwork_tpu_torch.blocksparse import torch_engine as TE
+    from tensornetwork_tpu_torch.blocksparse.tensor import tensordot
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
+        BatchedSymmetricDMRG)
+    skel, data, mpo, mpo_data, _ = sym_setup(torch, SYM_N, SYM_CHI, SYM_B)
+    d = BatchedSymmetricDMRG(skel, data, mpo, mpo_data=mpo_data)
+    site = SYM_N // 2
+    prog = d._program(site, "right")
+    skels = (d._Lskel[site], d.skeleton[site], d.mpo[site],
+             d._Rskel[site + 1])
+    g = torch.Generator(device=DEV).manual_seed(3)
+    L, A, W, R = (torch.randn((SYM_B, s.data.shape[0]), generator=g,
+                              device=DEV) for s in skels)
+    mv1, mv2, mv3 = prog.mv
+    plans = [TE._get_plan(skels[0], skels[1], [0], [0])]
+    t1 = TE.out_skeleton(plans[0])
+    plans.append(TE._get_plan(t1, skels[2], [0, 2], [0, 3]))
+    plans.append(TE._get_plan(TE.out_skeleton(plans[1]), skels[3], [1, 2],
+                              [0, 1]))
+    flops = [TE.plan_flops(p) for p in plans]
+    true = SYM_B * sum(f[0] for f in flops)
+    padded = SYM_B * sum(f[1] for f in flops)
+
+    def executor():
+        with highest_precision():
+            return mv3(mv2(mv1(L, A), W), R)
+
+    def loop():
+        outs = []
+        with highest_precision():
+            for b in range(SYM_B):
+                t = tensordot(skels[0]._like(L[b]), skels[1]._like(A[b]),
+                              [[0], [0]])
+                t = tensordot(t, skels[2]._like(W[b]), [[0, 2], [0, 3]])
+                t = tensordot(t, skels[3]._like(R[b]), [[1, 2], [0, 1]])
+                outs.append(t.data)
+        return torch.stack(outs)
+
+    y, y_loop = executor(), loop()
+    err = max_rel(y, y_loop)
+    repeat = bool(torch.equal(executor(), y))
+    ms = cuda_ms(torch, executor, 5)
+    loop_ms = cuda_ms(torch, loop, 1, warmup=0)  # y_loop was its warm-up
+    bound_ms = true / FP32_PEAK * 1e3
+    buckets = [[len(p["sectors"]), len(p["buckets"])] for p in plans]
+    emit(phase="bs_engine", site=site, chi=SYM_CHI, batch=SYM_B,
+         nnz=[int(s.data.shape[0]) for s in skels],
+         sectors_buckets=buckets, true_gflop=true / 1e9,
+         padded_gflop=padded / 1e9, padded_over_true=padded / true,
+         ms=ms, tflops=true / ms / 1e9, bound_ms=bound_ms,
+         bound_by="operations", loop_ms=loop_ms, max_rel_err=err,
+         repeat_same_bits=repeat)
+    check(np.isfinite(err) and err <= SYM_ENGINE_RTOL and repeat,
+          f"bs_engine: executor against the per-sector loop {err}, "
+          f"repeat bits {repeat}")
+
+
+def timed_events(torch, fn):
+    """(fn(), wall s, CUDA-event s), the card synchronised before and
+    after."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def device_profile(torch, fn):
+    """(device busy ms, device events: kernel launches and copies) of
+    fn()."""
+    rows = device_rows(torch, fn)
+    return sum(r[0] for r in rows) / 1e3, sum(r[2] for r in rows)
+
+
+def sym_dmrg_batched_phase(torch):
+    """BASELINE.json's configuration at full width: N=32, chi=1024, B=8,
+    m=10, f32, per-realization Jz through mpo_data.  The plan build (the
+    cold start), the right-canonicalising prepass, 1 warm + SYM_TIMED
+    timed one-site sweeps, the device's idle share and kernel launches of
+    one traced sweep, one two-site sweep with its discarded weight, and
+    B=32 one-site sweeps for the rate."""
+    from tensornetwork_tpu_torch.blocksparse import torch_engine as TE
+    from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
+        BatchedSymmetricDMRG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    skel, data, mpo, mpo_data, jz = sym_setup(torch, SYM_N, SYM_CHI, SYM_B)
+    d = BatchedSymmetricDMRG(skel, data, mpo, mpo_data=mpo_data)
+    plan_s = d.precompile()
+    cold_s = time.perf_counter() - t0
+    R, _, prepass_s = timed_events(torch, d.right_canonicalize)
+    warm, _, warm_s = timed_events(torch, lambda: d.sweep_one_site(R))
+    energies = [warm.cpu().numpy()]
+
+    def timed():
+        return [d.sweep_one_site(R) for _ in range(SYM_TIMED)]
+
+    es, wall, dev = timed_events(torch, timed)
+    energies = np.stack(energies + [e.cpu().numpy() for e in es])
+    sweep_s = dev / SYM_TIMED
+    busy, launches = device_profile(torch, lambda: d.sweep_one_site(R))
+    res = dict(N=SYM_N, chi=SYM_CHI, batch=SYM_B,
+               max_bond=max(s.flat_charges[2].dim for s in d.skeleton),
+               jz=jz.tolist(), plan_build_s=plan_s, cold_start_s=cold_s,
+               programs=len(d._programs), plans=len(TE._PLAN_CACHE),
+               prepass_s=prepass_s, warm_sweep_s=warm_s, sweep_s=sweep_s,
+               sweep_wall_s=wall / SYM_TIMED,
+               instance_sweeps_per_s=SYM_B / sweep_s,
+               sweep_device_busy_ms=busy,
+               device_idle_share=1 - busy / (sweep_s * 1e3),
+               launches_per_sweep=launches,
+               energies_per_sweep=energies.tolist())
+    check(np.all(np.isfinite(energies)) and energies.shape ==
+          (1 + SYM_TIMED, SYM_B),
+          f"sym_dmrg_batched: energies {energies}")
+    # variational sweeps: no realization rises by more than f32 noise
+    check(np.all(np.diff(energies, axis=0) <= 1e-4),
+          f"sym_dmrg_batched: an energy rose across sweeps: {energies}")
+    check(len(set(np.round(energies[-1], 4))) == SYM_B,
+          "sym_dmrg_batched: realizations with different couplings gave "
+          "equal energies")
+    # one two-site sweep: its programs' plans, then the sweep
+    t0 = time.perf_counter()
+    d.precompile(two_site=True)
+    res["two_site_plan_build_s"] = time.perf_counter() - t0
+    (e2, terr), wall2, dev2 = timed_events(torch, lambda: d.sweep_two_site(R))
+    e2, terr = e2.cpu().numpy(), terr.cpu().numpy()
+    res.update(two_site_sweep_s=dev2, two_site_wall_s=wall2,
+               two_site_energies=e2.tolist(),
+               two_site_discarded_weight=terr.tolist())
+    check(np.all(np.isfinite(e2)) and np.all(np.isfinite(terr))
+          and np.all(terr >= 0) and np.all(e2 <= energies[-1] + 1e-4),
+          f"two-site sweep: {e2}, {terr}")
+    res["peak_mem_gb_b8"] = torch.cuda.max_memory_allocated() / 1e9
+    del d, data, mpo_data, R
+    torch.cuda.empty_cache()
+    # B=32 for the rate: the same structures, so every plan is cached
+    skel, data, mpo, mpo_data, _ = sym_setup(torch, SYM_N, SYM_CHI,
+                                             SYM_B_RATE, seed=1)
+    d = BatchedSymmetricDMRG(skel, data, mpo, mpo_data=mpo_data)
+    n_plans = len(TE._PLAN_CACHE)
+    R = d.right_canonicalize()
+    es32, wall32, dev32 = timed_events(torch, lambda: d.sweep_one_site(R))
+    res.update(b32_sweep_s=dev32, b32_wall_s=wall32,
+               b32_instance_sweeps_per_s=SYM_B_RATE / dev32,
+               b32_new_plans=len(TE._PLAN_CACHE) - n_plans,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(np.all(np.isfinite(es32.cpu().numpy())), f"B=32 energies {es32}")
+    emit(phase="sym_dmrg_batched", **res)
+    del d, data, mpo_data, R
+    torch.cuda.empty_cache()
+
+
+def sym_dmrg_ed_phase(torch):
+    """N=16 against exact diagonalisation in the half-filled sector: the
+    batched one-site sweeps (chi=1024, capped at 236 by the window; B=8,
+    each realization against its own Jz) and SymmetricFiniteDMRG
+    (two-site, chi=64, realization 0's MPO) with both engines; every f32
+    energy within [DE_LO, DE_HI] of the exact one."""
+    from tensornetwork_tpu_torch.models.symmetric_dmrg import (
+        SymmetricFiniteDMRG, half_filled_mps, u1_xxz_mpo)
+    from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
+        BatchedSymmetricDMRG)
+    n = SYM_ED_N
+    skel, data, mpo, mpo_data, jz = sym_setup(torch, n, SYM_CHI, SYM_B)
+    t0 = time.perf_counter()
+    exact, states = zip(*(sector_ground_energy(n, j) for j in jz))
+    ed_s = time.perf_counter() - t0
+    d = BatchedSymmetricDMRG(skel, data, mpo, mpo_data=mpo_data)
+    plan_s = d.precompile()
+    es, wall, dev = timed_events(torch, lambda: d.run_one_site(
+        SYM_ED_SWEEPS, tol=-1.0))
+    de = es - np.array(exact)
+    res = dict(N=n, chi=SYM_CHI, batch=SYM_B,
+               max_bond=max(s.flat_charges[2].dim for s in d.skeleton),
+               sector_states=states[0], ed_s=ed_s, plan_build_s=plan_s,
+               sweeps=SYM_ED_SWEEPS, wall_s=wall, device_s=dev,
+               exact=exact, de=de.tolist())
+    check(np.all((de >= DE_LO) & (de <= DE_HI)),
+          f"sym_dmrg_ed batched N={n}: E - exact {de}")
+    single = []
+    w = u1_xxz_mpo(1.0, 1.0, 0.0, n, dtype=torch.float32, device=DEV)
+    for engine in ("device", "numpy"):
+        mps = half_filled_mps(n, SYM_SINGLE_CHI, seed=1,
+                              dtype=torch.float32, device=DEV)
+        s = SymmetricFiniteDMRG(mps, w, engine=engine)
+        e, wall_e, _ = timed_events(torch, lambda: s.run_two_site(
+            SYM_SINGLE_CHI, num_sweeps=SYM_SINGLE_SWEEPS, tol=-1.0))
+        single.append(dict(engine=engine, de=e - exact[0], wall_s=wall_e,
+                           energies=s.energies))
+        check(DE_LO <= e - exact[0] <= DE_HI,
+              f"SymmetricFiniteDMRG ({engine}) N={n}: E - exact "
+              f"{e - exact[0]}")
+    res["single_two_site"] = single
+    emit(phase="sym_dmrg_ed", **res)
+
+
+def bs_network_phase(torch):
+    """Block-sparse ncon and split_node on the card: the norm of a random
+    U(1) MPS (N=16, chi=64, f64) as one ncon against a loop of sector
+    tensordots, and split_node / split_node_qr of a two-site block of it
+    (chi=64 bonds), each rebuilt."""
+    import tensornetwork_tpu_torch as tn
+    from tensornetwork_tpu_torch.blocksparse import tensordot
+    from tensornetwork_tpu_torch.models.symmetric_dmrg import half_filled_mps
+    n = SYM_ED_N
+    mps = half_filled_mps(n, SYM_SINGLE_CHI, seed=2, device=DEV)
+    tensors = mps + [a.conj() for a in mps]
+    structure = []
+    for i in range(n):   # ket bonds 1.., bra bonds 100+.., physical 200+
+        left = [i] if i else [-1]
+        right = [i + 1] if i < n - 1 else [-2]
+        structure.append(left + [200 + i] + right)
+    for i in range(n):
+        left = [100 + i] if i else [-3]
+        right = [101 + i] if i < n - 1 else [-4]
+        structure.append(left + [200 + i] + right)
+    # the zip order: site i's ket, then its bra
+    order = [200] + [x for i in range(1, n) for x in (i, 100 + i, 200 + i)]
+    t0 = time.perf_counter()
+    out = tn.ncon(tensors, structure, con_order=order)
+    value = float(out.todense().sum())
+    ncon_s = time.perf_counter() - t0
+    E = tensordot(mps[0], mps[0].conj(), [[0, 1], [0, 1]])
+    for a in mps[1:]:
+        E = tensordot(tensordot(E, a, [[0], [0]]), a.conj(),
+                      [[0, 1], [0, 1]])
+    ref = float(E.todense().sum())
+    rel = abs(value - ref) / abs(ref)
+    theta = tensordot(mps[n // 2 - 1], mps[n // 2], [[2], [0]])
+    dense = theta.todense()
+    res = dict(N=n, chi=SYM_SINGLE_CHI, value=value, ref=ref, rel_err=rel,
+               ncon_s=ncon_s)
+    for name in ("split_node", "split_node_qr"):
+        node = tn.Node(theta)
+        edges = list(node.edges)
+        t0 = time.perf_counter()
+        parts = getattr(tn, name)(node, edges[:2], edges[2:])
+        merged = tn.contract_between(parts[0], parts[1])
+        merged.reorder_edges(edges)
+        res[name + "_s"] = time.perf_counter() - t0
+        res[name + "_rel_err"] = err = float(
+            torch.linalg.vector_norm(merged.tensor.todense() - dense)
+            / torch.linalg.vector_norm(dense))
+        check(err <= 1e-12, f"block-sparse {name}: reconstruction {err}")
+    emit(phase="bs_network", **res)
+    check(rel <= 1e-12, f"block-sparse ncon norm {value} against {ref}")
+
+
 _KP = "tensornetwork_tpu/ops/kernels.py:"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("heff_matvec", "heff_matvec.cu", _KP + "48"),
@@ -2903,6 +3244,19 @@ def main():
           f"a kernel launched on the ncon / graph-core path: {counts}")
     ncon_batched_phase(torch, card)
     torch.cuda.empty_cache()
+
+    # block-sparse U(1) DMRG, ncon and split_node: no kernel on this path
+    K.reset_launch_counts()
+    for bs_path in (bs_engine_phase, sym_dmrg_batched_phase,
+                    sym_dmrg_ed_phase, bs_network_phase):
+        t0 = time.perf_counter()
+        bs_path(torch)
+        emit(phase=bs_path.__name__[:-6] + "_seconds",
+             seconds=time.perf_counter() - t0)
+    counts = dict(K.launch_counts)
+    emit(phase="block_sparse_launches", **counts)
+    check(not any(counts.values()),
+          f"a kernel launched on the block-sparse path: {counts}")
 
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],

@@ -16,7 +16,12 @@ an exact subset-DP solver in C++, ``native/``, built by g++ at first
 use), the Node/Edge graph core (``core``: nodes, edges, contraction,
 splitting, JSON in the JAX package's format), the ``Tensor`` API and its
 linear algebra, the contractors (``contractors``) and the ``Config``
-stack.  The
+stack; and the block-sparse U(1)/Z_N tensors (``blocksparse``: host charge
+algebra, the per-sector loop and the bucketed batched executor) with
+U(1)-symmetric DMRG, single (``SymmetricFiniteDMRG``) and batched over
+disorder realizations (``BatchedSymmetricDMRG``), whose products are
+cuBLAS GEMMs, since the JAX package's block-sparse path reaches no Pallas
+kernel.  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
 CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
@@ -85,3 +90,13 @@ from tensornetwork_tpu_torch.parallel.batch import (
     BatchedDMRG, batched_one_site_sweep, batched_one_site_sweep_paired,
     batched_tdvp_one_site_sweep_sc, batched_two_site_sweep,
     batched_two_site_sweep_paired)
+# block-sparse symmetric tensors (reference ``block_sparse/``)
+from tensornetwork_tpu_torch import blocksparse
+block_sparse = blocksparse  # reference module name alias
+from tensornetwork_tpu_torch.blocksparse import (
+    BaseCharge, BlockSparseTensor, ChargeArray, Index, U1Charge, Z2Charge,
+    ZNCharge)
+from tensornetwork_tpu_torch.models.symmetric_dmrg import (
+    SymmetricFiniteDMRG, half_filled_mps, u1_xxz_mpo)
+from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
+    BatchedSymmetricDMRG)

@@ -6,8 +6,11 @@ edge algebra, pairwise contraction).  Nodes hold torch tensors; the graph
 surgery is host-side Python and every compute step is one eager torch op
 (a pairwise contraction is one ``torch.tensordot`` under the config's
 precision).  A node's tensor follows :func:`config.as_tensor`: a tensor
-stays on its device, a numpy array goes to the card.  Block-sparse node
-tensors wait for the port's block-sparse slice.
+stays on its device, a numpy array goes to the card.  A node may also hold
+a :class:`~tensornetwork_tpu_torch.blocksparse.BlockSparseTensor`: the
+graph operations dispatch on it (transpose, conjugation, the sector
+tensordot, partial traces), so symmetric tensors flow through the same
+Node/Edge API as dense ones.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
+from tensornetwork_tpu_torch.blocksparse.tensor import (
+    is_blocksparse as _is_blocksparse)
 from tensornetwork_tpu_torch.config import (Device, as_tensor,
                                             default_device, get_config)
 
@@ -26,13 +31,19 @@ Tensor = torch.Tensor
 _NAME_COUNTER = itertools.count()
 
 
-def _transpose(t: torch.Tensor, perm) -> torch.Tensor:
-    return t.permute(tuple(int(p) for p in perm))
+def _as_node_tensor(t):
+    return t if _is_blocksparse(t) else as_tensor(t)
 
 
-def conj(t: torch.Tensor) -> torch.Tensor:
-    """The complex conjugate as a tensor of its own (no lazy conj view)."""
-    return t.conj().resolve_conj()
+def _transpose(t, perm):
+    perm = tuple(int(p) for p in perm)
+    return t.transpose(perm) if _is_blocksparse(t) else t.permute(perm)
+
+
+def conj(t):
+    """The complex conjugate as a tensor of its own (no lazy conj view);
+    a block-sparse tensor's also flips its flows."""
+    return t.conj() if _is_blocksparse(t) else t.conj().resolve_conj()
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -279,7 +290,7 @@ class Node(AbstractNode):
                  axis_names: Optional[Sequence[str]] = None):
         if isinstance(tensor, AbstractNode):
             tensor = tensor.tensor
-        self._tensor = as_tensor(tensor)
+        self._tensor = _as_node_tensor(tensor)
         super().__init__(name=name, axis_names=axis_names)
         if axis_names is not None and len(axis_names) != self._tensor.ndim:
             raise ValueError("axis_names length does not match tensor rank")
@@ -291,7 +302,7 @@ class Node(AbstractNode):
 
     @tensor.setter
     def tensor(self, t: Tensor):
-        self._tensor = as_tensor(t)
+        self._tensor = _as_node_tensor(t)
 
     @classmethod
     def from_serial_dict(cls, d: dict, tensor) -> "Node":
@@ -717,7 +728,13 @@ def slice_edge(edge: Edge, start_index: int, length: int,
 
 def _tensordot(a, b, axes):
     """``torch.tensordot`` of the promoted operands under the config's
-    precision."""
+    precision; the sector tensordot of two block-sparse operands."""
+    if _is_blocksparse(a) or _is_blocksparse(b):
+        if not (_is_blocksparse(a) and _is_blocksparse(b)):
+            raise TypeError(
+                "cannot contract a BlockSparseTensor with a dense tensor")
+        from tensornetwork_tpu_torch.blocksparse.tensor import tensordot
+        return tensordot(a, b, axes)
     dtype = torch.promote_types(a.dtype, b.dtype)
     with get_config().precision():
         return torch.tensordot(a.to(dtype), b.to(dtype), dims=axes)
@@ -726,7 +743,11 @@ def _tensordot(a, b, axes):
 def _contract_trace(edge: Edge, name: Optional[str] = None) -> "Node":
     node = edge.node1
     ax1, ax2 = edge.axis1, edge.axis2
-    t = torch.diagonal(node.tensor, dim1=ax1, dim2=ax2).sum(-1)
+    if _is_blocksparse(node.tensor):
+        from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+        t = bsl.trace(node.tensor, axes=(ax1, ax2))
+    else:
+        t = torch.diagonal(node.tensor, dim1=ax1, dim2=ax2).sum(-1)
     new_node = Node(t, name=name)
     rest = [e for i, e in enumerate(node.edges) if i not in (ax1, ax2)]
     for new_axis, e in enumerate(rest):

@@ -6,8 +6,10 @@ invariants, node splitting by the port's truncated SVD, QR and RQ
 (:mod:`tensornetwork_tpu_torch.ops.decompositions`), reduced density
 networks, and JSON serialization in the JAX package's format (base64 of
 the array bytes and the numpy dtype name), so that either package reads
-what the other wrote.  Splitting block-sparse nodes waits for the port's
-block-sparse slice.
+what the other wrote.  A block-sparse node splits by the sector
+factorizations of :mod:`tensornetwork_tpu_torch.blocksparse.linalg` (the
+SVD with global cross-sector truncation, QR, and RQ by QR of the
+transpose).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 
 from tensornetwork_tpu_torch.config import Device, as_tensor
 from tensornetwork_tpu_torch.core.network import (
-    AbstractNode, Edge, Node, connect, contract_parallel, get_all_edges)
+    AbstractNode, Edge, Node, _is_blocksparse, connect, contract_parallel,
+    get_all_edges)
 from tensornetwork_tpu_torch.ops import decompositions as _decomp
 
 
@@ -198,6 +201,55 @@ def redirect_edge(edge: Edge, new_node: AbstractNode,
 # ---------------------------------------------------------------------------
 
 
+def _bst_matrix(t, n_left):
+    """A block-sparse tensor as the (left legs) x (right legs) matrix;
+    also the two sides' dims."""
+    left_dims, right_dims = t.shape[:n_left], t.shape[n_left:]
+    return (t.reshape((int(np.prod(left_dims)), int(np.prod(right_dims)))),
+            tuple(left_dims), tuple(right_dims))
+
+
+def _bst_split_svd(t, n_left, max_singular_values=None,
+                   max_truncation_err=None, relative=False):
+    """Truncated SVD of a BlockSparseTensor split into (left, right) leg
+    groups through the graph API (reference
+    ``tests/split_node_symmetric_test.py`` scenarios): fuse each side,
+    run the sector SVD with global cross-sector truncation, unfuse."""
+    from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+    m, left_dims, right_dims = _bst_matrix(t, n_left)
+    U, S, V, s_rest = bsl.truncated_svd(
+        m, max_singular_values=max_singular_values,
+        max_truncation_error=max_truncation_err, relative=relative)
+    k = U.shape[1]
+    return (U.reshape(left_dims + (k,)), S, V.reshape((k,) + right_dims),
+            s_rest)
+
+
+def _bst_sqrt_diag(S):
+    """diag(sqrt(S)) for a singular-value ChargeArray."""
+    from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+    return bsl.diag(type(S)(torch.sqrt(S.data), S._charges, S._flows))
+
+
+def _bst_split_qr(t, n_left):
+    from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+    m, left_dims, right_dims = _bst_matrix(t, n_left)
+    Q, R = bsl.qr(m)
+    k = Q.shape[1]
+    return Q.reshape(left_dims + (k,)), R.reshape((k,) + right_dims)
+
+
+def _bst_split_rq(t, n_left):
+    """RQ via QR of the transpose: m^T = Q_t R_t  =>  m = R_t^T Q_t^T,
+    with Q_t^T row-isometric (the block-sparse layer ships QR only)."""
+    from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+    m, left_dims, right_dims = _bst_matrix(t, n_left)
+    Qt, Rt = bsl.qr(m.transpose((1, 0)))
+    r, q = Rt.transpose((1, 0)), Qt.transpose((1, 0))
+    k = q.shape[0]
+    return r.reshape(left_dims + (k,)), q.reshape((k,) + right_dims)
+
+
 def _prepare_split(node: AbstractNode, left_edges: Sequence[Edge],
                    right_edges: Sequence[Edge]):
     if set(left_edges) | set(right_edges) != set(node.edges) or \
@@ -240,13 +292,22 @@ def split_node(
     """Truncated-SVD split: returns ``(U·sqrt(S), sqrt(S)·V†, s_rest)``
     (reference ``network_operations.py:130``)."""
     t = _prepare_split(node, left_edges, right_edges)
-    u, s, vh, s_rest = _decomp.svd(
-        t, pivot_axis=len(left_edges),
-        max_singular_values=max_singular_values,
-        max_truncation_error=max_truncation_err, relative=relative)
-    sqrt_s = torch.sqrt(s)
-    u = u * sqrt_s
-    vh = vh * sqrt_s.reshape((-1,) + (1,) * (vh.ndim - 1))
+    if _is_blocksparse(t):
+        from tensornetwork_tpu_torch.blocksparse.tensor import tensordot
+        u0, S, vh0, s_rest = _bst_split_svd(
+            t, len(left_edges), max_singular_values, max_truncation_err,
+            relative)
+        D = _bst_sqrt_diag(S)
+        u = tensordot(u0, D, [[u0.ndim - 1], [0]])
+        vh = tensordot(D, vh0, [[1], [0]])
+    else:
+        u, s, vh, s_rest = _decomp.svd(
+            t, pivot_axis=len(left_edges),
+            max_singular_values=max_singular_values,
+            max_truncation_error=max_truncation_err, relative=relative)
+        sqrt_s = torch.sqrt(s)
+        u = u * sqrt_s
+        vh = vh * sqrt_s.reshape((-1,) + (1,) * (vh.ndim - 1))
     left, right, _ = _finish_split(node, left_edges, right_edges, u, vh,
                                    left_name, right_name, edge_name)
     return left, right, s_rest
@@ -268,11 +329,18 @@ def split_node_full_svd(
     """Returns ``(U, S-node, V†, s_rest)`` (reference
     ``network_operations.py:446``)."""
     t = _prepare_split(node, left_edges, right_edges)
-    u, s, vh, s_rest = _decomp.svd(
-        t, pivot_axis=len(left_edges),
-        max_singular_values=max_singular_values,
-        max_truncation_error=max_truncation_err, relative=relative)
-    middle_t = torch.diag(s)
+    if _is_blocksparse(t):
+        from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+        u, S, vh, s_rest = _bst_split_svd(
+            t, len(left_edges), max_singular_values, max_truncation_err,
+            relative)
+        middle_t = bsl.diag(S)
+    else:
+        u, s, vh, s_rest = _decomp.svd(
+            t, pivot_axis=len(left_edges),
+            max_singular_values=max_singular_values,
+            max_truncation_error=max_truncation_err, relative=relative)
+        middle_t = torch.diag(s)
     left = Node(u, name=left_name)
     middle = Node(middle_t, name=middle_name)
     right = Node(vh, name=right_name)
@@ -301,7 +369,10 @@ def split_node_qr(
 ) -> Tuple[Node, Node]:
     """(reference ``network_operations.py:258``)"""
     t = _prepare_split(node, left_edges, right_edges)
-    q, r = _decomp.tensor_qr(t, pivot_axis=len(left_edges))
+    if _is_blocksparse(t):
+        q, r = _bst_split_qr(t, len(left_edges))
+    else:
+        q, r = _decomp.tensor_qr(t, pivot_axis=len(left_edges))
     left, right, _ = _finish_split(node, left_edges, right_edges, q, r,
                                    left_name, right_name, edge_name)
     return left, right
@@ -317,7 +388,10 @@ def split_node_rq(
 ) -> Tuple[Node, Node]:
     """(reference ``network_operations.py:351``)"""
     t = _prepare_split(node, left_edges, right_edges)
-    r, q = _decomp.rq(t, pivot_axis=len(left_edges))
+    if _is_blocksparse(t):
+        r, q = _bst_split_rq(t, len(left_edges))
+    else:
+        r, q = _decomp.rq(t, pivot_axis=len(left_edges))
     left, right, _ = _finish_split(node, left_edges, right_edges, r, q,
                                    left_name, right_name, edge_name)
     return left, right

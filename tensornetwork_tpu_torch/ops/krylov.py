@@ -158,7 +158,9 @@ def tridiag_ritz(alphas: torch.Tensor, betas: torch.Tensor,
             v = h[..., None] * w + (mu - lam)[..., None] * u
             vn = torch.linalg.vector_norm(v, dim=-1)
             w2 = v / torch.where(vn > 1e-30, vn, 1.0)[..., None]
-            w = torch.where((rn > 1e-14)[..., None], w2, w)
+            # a converged w whose residual is rounding noise can give h = 0
+            # and mu = lam exactly (v = 0): keep w rather than zero it
+            w = torch.where(((rn > 1e-14) & (vn > 1e-30))[..., None], w2, w)
         return dot(w, mv(w)), w
     if method != "eigh":
         raise ValueError(f"unknown Ritz method {method!r}")

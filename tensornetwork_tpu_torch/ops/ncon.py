@@ -11,8 +11,10 @@ of pair merges with explicit contracted and batch axes, cached per
 each pair step is one ``torch.tensordot``, or, with batch axes, one
 batched ``torch.matmul`` of the permuted and reshaped operands; partial
 traces are ``torch.diagonal`` and a sum.  Complex networks run on native
-complex tensors.  Block-sparse operands (the JAX package's
-``_execute_plan_blocksparse``) wait for the port's block-sparse slice.
+complex tensors.  Block-sparse operands
+(:class:`~tensornetwork_tpu_torch.blocksparse.BlockSparseTensor`) replay
+the same plan through the per-sector tensordot
+(:func:`_execute_plan_blocksparse`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tensornetwork_tpu_torch.blocksparse.tensor import (
+    is_blocksparse as _is_blocksparse)
 from tensornetwork_tpu_torch.config import as_tensor, get_config
 
 Label = Union[int, str]
@@ -449,7 +453,8 @@ def ncon(
     tensors = [t.tensor if hasattr(t, "tensor") and hasattr(t, "edges")
                else (t.array if hasattr(t, "array") else t)
                for t in tensors]
-    tensors = [as_tensor(t) for t in tensors]
+    blocksparse = any(_is_blocksparse(t) for t in tensors)
+    tensors = [t if _is_blocksparse(t) else as_tensor(t) for t in tensors]
     structure, mapping = canonicalize_structure(network_structure)
     shapes = [tuple(t.shape) for t in tensors]
     if isinstance(con_order, str):
@@ -464,7 +469,95 @@ def ncon(
     plan = _cached_plan(structure,
                         tuple(con_order) if con_order is not None else None,
                         tuple(out_order) if out_order is not None else None)
+    if blocksparse:
+        return _execute_plan_blocksparse(plan, tensors)
     return execute_plan(plan, tensors)
+
+
+def _cont_charges_compatible(a, b, cont_a, cont_b) -> bool:
+    """True when every contracted leg pair has dual-matching charges --
+    the condition under which the sparse tensordot applies (the check the
+    sector tensordot itself makes)."""
+    s1, s2 = a.sparse_shape, b.sparse_shape
+    for a1, a2 in zip(cont_a, cont_b):
+        i1, i2 = s1[a1], s2[a2]
+        if i1.dim != i2.dim:
+            return True  # let the sparse tensordot raise the dim error
+        if not np.array_equal(i1.charges.charges,
+                              i2.charges.dual(True).charges):
+            return False
+    return True
+
+
+def _execute_plan_blocksparse(plan: ContractionPlan, tensors):
+    """Replay a plan on block-sparse operands (the symmetric-backend ncon
+    surface, reference ``backends/symmetric``), as the JAX package does:
+
+    * ``trace``: per-sector partial traces (``linalg.trace_axes``);
+    * ``pair`` with batch labels: sector-batched GEMMs
+      (:func:`~tensornetwork_tpu_torch.blocksparse.tensor.tensordot_batched`);
+    * ``sum`` (a once-appearing positive label): summing a charged leg
+      leaves the charge-conserving algebra, so the operand densifies
+      (``todense``) and the remaining steps for it run dense
+      (:func:`dot_general`), the reference's dense-path semantics
+      (``ncon_interface.py:402-419``).  A network whose lone labels mix
+      sectors therefore returns a dense tensor.
+    """
+    from tensornetwork_tpu_torch.blocksparse import linalg as bsl
+    from tensornetwork_tpu_torch.blocksparse import tensor as bst
+    slots = list(tensors)
+    for op in plan.steps:
+        if op.kind == "trace":
+            # each pair removes both axes; later pairs address the
+            # remaining original axes, so their positions stay valid
+            t = slots[op.a]
+            if _is_blocksparse(t):
+                for (ax1, ax2) in op.axes:
+                    t = bsl.trace_axes(t, (ax1, ax2))
+            else:
+                for (ax1, ax2) in op.axes:
+                    t = torch.diagonal(t, dim1=ax1, dim2=ax2)
+                n = len(op.axes)
+                t = t.sum(dim=tuple(range(t.ndim - n, t.ndim)))
+            slots[op.a] = t
+        elif op.kind == "sum":
+            t = slots[op.a]
+            if _is_blocksparse(t):
+                t = t.todense()
+            slots[op.a] = t.sum(dim=op.axes)
+        elif op.kind == "pair":
+            a, b = slots[op.a], slots[op.b]
+            a_bs, b_bs = _is_blocksparse(a), _is_blocksparse(b)
+            if a_bs and b_bs and _cont_charges_compatible(
+                    a, b, op.cont_a, op.cont_b):
+                if op.batch_a or op.batch_b:
+                    slots[op.a] = bst.tensordot_batched(
+                        a, b, (list(op.cont_a), list(op.cont_b)),
+                        (list(op.batch_a), list(op.batch_b)))
+                else:
+                    slots[op.a] = bst.tensordot(
+                        a, b, [list(op.cont_a), list(op.cont_b)])
+            else:
+                # dense from here on: a densified slot (lone-label sum)
+                # met the pair, or the contracted legs are charge-
+                # incompatible (a >2-holder batch label's fused-charge leg
+                # meeting a later holder's original leg); the dense
+                # semantics (sum over the shared index) stay well defined
+                slots[op.a] = dot_general(
+                    a.todense() if a_bs else a, b.todense() if b_bs else b,
+                    op.cont_a, op.cont_b, op.batch_a, op.batch_b)
+            slots[op.b] = None
+        elif op.kind == "final":
+            t = slots[op.a]
+            if t.ndim and op.perm != tuple(range(t.ndim)):
+                t = (t.transpose(list(op.perm)) if _is_blocksparse(t)
+                     else t.permute(op.perm))
+            return t
+        else:
+            raise NotImplementedError(
+                f"ncon op {op.kind!r} is not supported for block-sparse "
+                f"operands")
+    raise AssertionError("plan had no final step")
 
 
 def finalize(builder) -> Any:

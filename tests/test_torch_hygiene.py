@@ -189,3 +189,44 @@ def test_graph_core_and_ncon_raise_without_cuda(monkeypatch):
     assert CopyNode(2, 3, device="cpu").tensor.device.type == "cpu"
     assert nodes_from_json(text, device="cpu")[0][0].tensor.device.type \
         == "cpu"
+
+
+def test_block_sparse_entry_points_raise_without_cuda(monkeypatch):
+    from tensornetwork_tpu_torch import (BatchedSymmetricDMRG,
+                                         BlockSparseTensor, Index, U1Charge,
+                                         half_filled_mps, u1_xxz_mpo)
+    from tensornetwork_tpu_torch import blocksparse as bs
+    from tensornetwork_tpu_torch.blocksparse import batched
+    from tensornetwork_tpu_torch.blocksparse.torch_engine import to_device
+
+    idx = [Index(U1Charge(np.array([0, 1])), False),
+           Index(U1Charge(np.array([0, 1])), True)]
+    skel = batched.uniform_skeleton_mps(4, 4, device="cpu")
+    mpo = u1_xxz_mpo(1.0, 1.0, 0.0, 4, device="cpu")
+    cpu = bs.randn(idx, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: BlockSparseTensor(np.ones(2), *_structure(idx)),
+                 lambda: bs.randn(idx), lambda: bs.zeros(idx),
+                 lambda: bs.eye(idx[0]),
+                 lambda: BlockSparseTensor.fromdense(idx, np.eye(2)),
+                 lambda: batched.uniform_skeleton_mps(4, 4),
+                 lambda: batched.random_data_batch(skel, 2),
+                 lambda: u1_xxz_mpo(1.0, 1.0, 0.0, 4),
+                 lambda: half_filled_mps(4, 4),
+                 lambda: to_device(cpu),
+                 lambda: BatchedSymmetricDMRG(
+                     skel, [np.zeros((2, t.data.shape[0])) for t in skel],
+                     mpo)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # CPU tensors, or an explicit CPU request, stay on the CPU
+    assert cpu.todense().device.type == "cpu"
+    assert bs.tensordot(cpu, cpu.conj(), [[0, 1], [0, 1]]).device.type \
+        == "cpu"
+    data = batched.random_data_batch(skel, 2, device="cpu")
+    assert BatchedSymmetricDMRG(skel, data, mpo).device.type == "cpu"
+
+
+def _structure(indices):
+    from tensornetwork_tpu_torch.blocksparse.tensor import _expand_indices
+    return _expand_indices(indices)
