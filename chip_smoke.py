@@ -43,7 +43,14 @@ MPS transfer chain at bench.py's
 shape (B=256, N=32, chi=128, bf16, 8 chained applications; route
 "resident") and on its route "tiled" (chi=256 bf16 and f32, chi=128 and
 64 f32), and the chained-GEMM probe's 11-shape ladder (route "wgmma",
-timed beside its WMMA route and a torch.matmul chain).  K1 runs at chi=64
+timed beside its WMMA route and a torch.matmul chain).  Then the
+application layer, where no kernel runs: the six tensor-network NN
+layers forward and backward at B=4096 (the convolution on 32 28x28 maps
+of 16 channels, strides 1 and 2, "SAME"), each against the same module
+in float64 on the CPU; the tn_keras classifier trained 300 Adam steps at
+B=128 (ms a step, idle share, test accuracy above 0.22); a 20-qubit
+state's reduced density and <Z0 Z1> against numpy, and <psi|H|psi> of
+an N=32, chi=64 MPS by the quantum operators and the greedy contractor.  K1 runs at chi=64
 for B=256 and the plain path's B=1, nt=2 and 4, on the route
 heff_matvec_route picks, timed in turns with the first port's SIMT
 kernel; its row of the kernels line is the path's shape, B=1, nt=2.
@@ -3098,6 +3105,268 @@ def bs_network_phase(torch):
     check(rel <= 1e-12, f"block-sparse ncon norm {value} against {ref}")
 
 
+
+# The application layer, where no kernel runs: the six NN layers forward
+# and backward at widths users train (B=4096; the conv on 32 28x28 maps of
+# 16 channels), each against the same module copied to the CPU in float64
+# (errors relative to the largest entry; f32 sums of a few thousand terms
+# stay near 1e-6, a TF32 product misses by ~1e-3)
+NN_B, NN_RTOL, NN_REPS = 4096, 1e-5, 10
+CONV_SHAPE = (32, 28, 28, 16)
+# The tn_keras classifier (BASELINE.json's configuration 4) at its full
+# width: 300 Adam steps at B=128, test accuracy above the JAX package's
+# own threshold (tests/test_examples.py:69); ms a step is the median of
+# CUDA-event blocks of CLF_BLOCK chained steps after the first CLF_SKIP;
+# the device's busy time from CLF_PROFILED profiled steps
+CLF_STEPS, CLF_BATCH, CLF_MIN_ACC = 300, 128, 0.22
+CLF_SKIP, CLF_BLOCK, CLF_PROFILED = 20, 10, 20
+# Quantum operators: a QUBITS-qubit complex64 state (reduced density of
+# two sites, <Z0 Z1>) against numpy in complex128, and <psi|H|psi> of an
+# N=32, chi=64 f32 MPS under the TFI MPO by the greedy contractor against
+# the port's f64 environment contraction of the same state
+QUBITS, QUANTUM_ATOL, QUANTUM_RTOL = 20, 1e-5, 1e-5
+
+
+def nn_layer_cases(torch):
+    """(generator, [(name, the layer on the card in f32, input shape)]).
+    No activation: a ReLU's kink flips where f32 and f64 round a
+    pre-activation of ~1e-7 to opposite signs, and its gradient with it
+    (on an H100 the DenseEntangler's bias gradient missed by 4e-3 so)."""
+    from tensornetwork_tpu_torch import nn
+    g = torch.Generator(device=DEV).manual_seed(15)
+    kw = dict(device=DEV, dtype=torch.float32, generator=g)
+    return g, [
+        ("DenseMPO", nn.DenseMPO(256, 4, 8, input_dim=1296, **kw),
+         (NN_B, 1296)),
+        ("DenseDecomp", nn.DenseDecomp(256, 32, input_dim=1024, **kw),
+         (NN_B, 1024)),
+        ("DenseCondenser", nn.DenseCondenser(2, 3, input_dim=1024, **kw),
+         (NN_B, 1024)),
+        ("DenseExpander", nn.DenseExpander(2, 2, input_dim=256, **kw),
+         (NN_B, 256)),
+        ("DenseEntangler", nn.DenseEntangler(1296, 4, 2, input_dim=1296,
+                                             **kw), (NN_B, 1296)),
+        ("Conv2DMPO_s1", nn.Conv2DMPO(64, (3, 3), 2, 8, in_channels=16,
+                                      **kw), CONV_SHAPE),
+        ("Conv2DMPO_s2", nn.Conv2DMPO(64, (3, 3), 2, 8, strides=(2, 2),
+                                      in_channels=16, **kw), CONV_SHAPE)]
+
+
+def tf32_conv(torch, layer, x):
+    """The layer's convolution by a plain F.conv2d with cuDNN's TF32
+    allowed, the control that shows what the comparison catches."""
+    import torch.nn.functional as F
+    from tensornetwork_tpu_torch.nn.layers import same_padding
+    xc = x.permute(0, 3, 1, 2)
+    (kh, kw), (sh, sw) = layer.kernel_size, layer.strides
+    top, bottom = same_padding(xc.shape[2], kh, sh)
+    left, right = same_padding(xc.shape[3], kw, sw)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        y = F.conv2d(F.pad(xc, (left, right, top, bottom)),
+                     layer.kernel().permute(3, 2, 0, 1), stride=layer.strides)
+    return (y.permute(0, 2, 3, 1) + layer.bias).detach()
+
+
+def nn_layers_phase(torch, card):
+    """Each layer forward and backward on the card (f32) against a float64
+    copy on the CPU: the output and the gradients of <y, t> for the input
+    and every parameter; ms of one forward + backward by CUDA events."""
+    import copy
+    g, cases = nn_layer_cases(torch)
+    res = []
+    for name, layer, shape in cases:
+        ref = copy.deepcopy(layer).to(device="cpu", dtype=torch.float64)
+        x = torch.randn(shape, generator=g, device=DEV).requires_grad_()
+        y = layer(x)
+        t = torch.randn(y.shape, generator=g, device=DEV)
+        (y * t).sum().backward()
+        x64 = x.detach().cpu().double().requires_grad_()
+        y64 = ref(x64)
+        (y64 * t.cpu().double()).sum().backward()
+        errs = {"y": max_rel(y.detach().cpu().double(), y64.detach()),
+                "x_grad": max_rel(x.grad.cpu().double(), x64.grad)}
+        for (pname, p), p64 in zip(layer.named_parameters(),
+                                   ref.parameters()):
+            errs[pname + "_grad"] = max_rel(p.grad.cpu().double(), p64.grad)
+        ms = cuda_ms(torch, lambda: (layer(x) * t).sum().backward(),
+                     NN_REPS)
+        case = dict(layer=name, input=list(shape), output=list(y.shape),
+                    params=sum(p.numel() for p in layer.parameters()),
+                    ms_forward_backward=ms, max_rel_err=max(errs.values()),
+                    rel_errs=errs)
+        if name.startswith("Conv2DMPO"):
+            case["tf32_conv_rel_err"] = max_rel(
+                tf32_conv(torch, layer, x.detach()).cpu().double(),
+                y64.detach())
+        res.append(case)
+        del ref, x, y, t, x64, y64
+    emit(phase="nn_layers", card=card, batch=NN_B, rtol=NN_RTOL,
+         cudnn_allow_tf32_default=torch.backends.cudnn.allow_tf32,
+         cases=res)
+    for case in res:
+        check(case["max_rel_err"] <= NN_RTOL,
+              f"{case['layer']} on the card against float64: "
+              f"{case['rel_errs']}")
+
+
+def classifier_flops(batch):
+    """Multiply-adds x 2 of one forward pass of TNClassifier: the DenseMPO
+    chain (i=6, o=4, D=8, 4 cores), DenseDecomp 256-16-64, the head."""
+    i, o, D, n = 6, 4, 8, 4
+    mpo = 2 * batch * i ** n * o * D
+    for k in range(1, n - 1):
+        mpo += 2 * batch * i ** (n - k) * o ** k * D * o * D
+    mpo += 2 * batch * i * o ** (n - 1) * D * o
+    return mpo + 2 * batch * (256 * 16 + 16 * 64 + 64 * 10)
+
+
+def tn_classifier_phase(torch, card):
+    """tn_classifier.main(300, 128) on the card: accuracy, the loss falling,
+    ms a step (CUDA events over blocks of chained steps), host ms a step,
+    and the device's idle share from a profiled window of the trained
+    model's steps."""
+    from tensornetwork_tpu_torch.benchmarks import tn_classifier as tc
+    events, host, losses = [], [], []
+
+    def on_step(k, loss):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        host.append(time.perf_counter())
+        losses.append(loss)
+
+    t0 = time.perf_counter()
+    acc, model = tc.main(CLF_STEPS, CLF_BATCH, device=DEV, on_step=on_step)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    starts = range(CLF_SKIP - 1, CLF_STEPS - CLF_BLOCK, CLF_BLOCK)
+    ms_step = statistics.median(
+        events[k].elapsed_time(events[k + CLF_BLOCK]) / CLF_BLOCK
+        for k in starts)
+    host_ms = statistics.median(
+        (host[k + CLF_BLOCK] - host[k]) * 1e3 / CLF_BLOCK for k in starts)
+    losses = torch.stack(losses).double().cpu()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    # the device's busy time a step, in a profiled window of the trained
+    # model's steps (its own Adam state)
+    x, y = (torch.as_tensor(a, device=DEV)
+            for a in tc.synthetic_mnist(CLF_BATCH, seed=2))
+    step = tc.make_step(model)
+    for _ in range(3):
+        step(x, y)
+    busy, top = device_busy_ms(
+        torch, lambda: [step(x, y) for _ in range(CLF_PROFILED)], top=6)
+    busy /= CLF_PROFILED
+    flops = 3 * classifier_flops(CLF_BATCH)
+    emit(phase="tn_classifier", card=card, steps=CLF_STEPS, batch=CLF_BATCH,
+         accuracy=acc, first_loss_mean10=first, last_loss_mean10=last,
+         final_loss=float(losses[-1]), train_s=train_s,
+         ms_per_step_cuda_events=ms_step, host_ms_per_step=host_ms,
+         device_busy_ms_per_step=busy,
+         device_idle_share=1 - busy / ms_step,
+         device_top_per_profiled_window=top,
+         params=sum(p.numel() for p in model.parameters()),
+         flops_per_step_fwd_bwd=flops,
+         bound_ms_fp32=flops / FP32_PEAK * 1e3)
+    check(acc > CLF_MIN_ACC, f"classifier test accuracy {acc}")
+    check(np.isfinite(last) and last < first,
+          f"classifier loss did not fall: {first} -> {last}")
+
+
+def mps_ket(torch, As):
+    """The MPS stack (N, chi, d, chi) as a QuVector whose subsystems are
+    the open left bond, the N physical legs and the open right bond."""
+    import tensornetwork_tpu_torch as tn
+    from tensornetwork_tpu_torch import quantum
+    sites = [tn.Node(a) for a in As]
+    for a, b in zip(sites, sites[1:]):
+        tn.connect(a[2], b[0])
+    return quantum.QuVector([sites[0][0]] + [s[1] for s in sites]
+                            + [sites[-1][2]])
+
+
+def mpo_operator(torch, mpo, chi):
+    """The MPO as a QuOperator (out: the bra legs s, in: the ket legs t),
+    with lazy identities on the two open bonds: <psi|op|psi> is then the
+    identity-boundary trace that mps_mpo_expectation takes."""
+    import tensornetwork_tpu_torch as tn
+    from tensornetwork_tpu_torch import quantum
+    w = [tn.Node(W) for W in mpo.Ws]
+    for a, b in zip(w, w[1:]):
+        tn.connect(a[1], b[0])
+    tn.connect(tn.Node(mpo.vL)[0], w[0][0])
+    tn.connect(w[-1][1], tn.Node(mpo.vR)[0])
+    h = quantum.QuOperator([x[2] for x in w], [x[3] for x in w])
+    ends = [quantum.identity([chi], dtype=mpo.Ws.dtype, device=DEV)
+            for _ in range(2)]
+    return ends[0] | h | ends[1]
+
+
+def quantum_ops_phase(torch, card):
+    """A QUBITS-qubit complex64 QuVector: the reduced density of sites 0
+    and 1, and <Z0 Z1> as <psi| (ZZ x identity) |psi>, against numpy in
+    complex128; <psi|H|psi> / <psi|psi> of an N=32, chi=64 f32 MPS (the
+    all-up product state plus a random part) under the TFI MPO, evaluated
+    by the greedy contractor, against mps_mpo_expectation of the same
+    state in float64."""
+    from tensornetwork_tpu_torch import quantum
+    from tensornetwork_tpu_torch.models.dmrg import (mps_mpo_expectation,
+                                                     random_mps_stack)
+    from tensornetwork_tpu_torch.models.mpo import FiniteTFI
+    g = torch.Generator(device=DEV).manual_seed(20)
+    psi = torch.randn((2,) * QUBITS, generator=g, device=DEV,
+                      dtype=torch.complex64)
+    psi = psi / torch.linalg.vector_norm(psi)
+    ket = quantum.QuVector.from_tensor(psi)
+    rho, rho_s, _ = timed_events(torch, lambda: ket.reduced_density(
+        list(range(2, QUBITS))).eval())
+    zz_t = torch.diag(torch.tensor([1, -1, -1, 1], dtype=torch.complex64,
+                                   device=DEV)).reshape(2, 2, 2, 2)
+    op = quantum.QuOperator.from_tensor(zz_t) | quantum.identity(
+        [2] * (QUBITS - 2), dtype=torch.complex64, device=DEV)
+    zz, zz_s, _ = timed_events(
+        torch, lambda: (ket.adjoint() @ op @ ket).eval())
+    p = psi.cpu().numpy().astype(np.complex128).reshape(4, -1)
+    rho_ref = p @ p.conj().T
+    zz_ref = float(np.real(np.sum(np.array([1, -1, -1, 1])
+                                  * np.diag(rho_ref))))
+    rho_err = float(np.abs(rho.reshape(4, 4).cpu().numpy() - rho_ref).max()
+                    / np.abs(rho_ref).max())
+    zz_err = abs(complex(zz.cpu()) - zz_ref)
+    res = dict(qubits=QUBITS, rho_device=str(rho.device),
+               rho_dtype=str(rho.dtype), rho_rel_err=rho_err,
+               rho_eval_s=rho_s, zz=complex(zz.cpu()).real, zz_ref=zz_ref,
+               zz_abs_err=zz_err, zz_eval_s=zz_s)
+    check(rho.device.type == "cuda" and rho.dtype == torch.complex64
+          and rho_err <= QUANTUM_RTOL and zz_err <= QUANTUM_ATOL,
+          f"quantum ops on the {QUBITS}-qubit state: {res}")
+    # <psi|H|psi> at the main path's shape
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    # the all-up product state plus a random part: <H> ~ N Bz, no sum of
+    # cancelling terms (a random state's ~1e-2 left an f32 error of
+    # 9e-7..3.8e-6 of it, by whichever greedy path the tie-breaks gave)
+    As = 0.1 * random_mps_stack(21, N, CHI, dtype=torch.float32, device=DEV)
+    As[:, :, 0, :] += torch.eye(CHI, device=DEV)
+    mps = mps_ket(torch, As)
+    H = mpo_operator(torch, mpo, CHI)
+    evals = []
+    for _ in range(2):   # the greedy path is solved anew each time
+        (num, den), wall_s, dev_s = timed_events(torch, lambda: (
+            (mps.adjoint() @ H @ mps).eval(), (mps.adjoint() @ mps).eval()))
+        evals.append(dict(wall_s=wall_s, cuda_events_s=dev_s))
+    e = float(num) / float(den)
+    e64 = float(mps_mpo_expectation(As.double(), mpo.Ws.double(),
+                                    mpo.vL.double(), mpo.vR.double()))
+    rel = abs(e - e64) / abs(e64)
+    res.update(mps_N=N, mps_chi=CHI, energy=e, energy_f64=e64,
+               energy_rel_err=rel, num_dtype=str(num.dtype),
+               energy_evals=evals)
+    emit(phase="quantum_ops", card=card, **res)
+    check(num.device.type == "cuda" and num.dtype == torch.float32
+          and np.isfinite(e) and rel <= QUANTUM_RTOL,
+          f"<psi|H|psi> by the greedy contractor {e} against {e64}")
+
+
 _KP = "tensornetwork_tpu/ops/kernels.py:"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("heff_matvec", "heff_matvec.cu", _KP + "48"),
@@ -3280,6 +3549,20 @@ def main():
     # the transfer chain and the chained-GEMM probe, each its own path
     meas["transfer_chain"], launches["transfer_chain"] = k6_phase(torch)
     meas["gemm_chain"], launches["gemm_chain"] = k9_phase(torch)
+
+    # the NN layers, the tn_keras classifier and the quantum operators: no
+    # kernel on these paths
+    K.reset_launch_counts()
+    for app_path in (nn_layers_phase, tn_classifier_phase,
+                     quantum_ops_phase):
+        t0 = time.perf_counter()
+        app_path(torch, card)
+        emit(phase=app_path.__name__[:-6] + "_seconds",
+             seconds=time.perf_counter() - t0)
+    counts = dict(K.launch_counts)
+    emit(phase="application_layer_launches", **counts)
+    check(not any(counts.values()),
+          f"a kernel launched on the application layer: {counts}")
 
     kernels = [dict(name=name, route="cuda",
                     source="tensornetwork_tpu_torch/csrc/" + src,

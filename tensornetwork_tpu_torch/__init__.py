@@ -21,7 +21,11 @@ algebra, the per-sector loop and the bucketed batched executor) with
 U(1)-symmetric DMRG, single (``SymmetricFiniteDMRG``) and batched over
 disorder realizations (``BatchedSymmetricDMRG``), whose products are
 cuBLAS GEMMs, since the JAX package's block-sparse path reaches no Pallas
-kernel.  The
+kernel; and the application layer: the tensor-network NN layers as
+``torch.nn.Module`` subclasses (``nn``; the ``tn_keras`` classifier in
+``benchmarks.tn_classifier``), the lazy quantum operators (``quantum``)
+and the utils (``utils``: HDF5 snapshots, checkpoints, profiling,
+topology strings, graphviz), where no kernel runs either.  The
 local solve is a ladder of tiers by bond dimension (resident, two-pass,
 streamed, streamed matvec, XL streamed matvec), each on kernels written in
 CUDA for Hopper (``csrc/``); the one-site gauge shift and environment
@@ -71,9 +75,11 @@ from tensornetwork_tpu_torch.models.dmrg import (FiniteDMRG, SweepResult,
                                                  two_site_sweep)
 from tensornetwork_tpu_torch.models import mera, tebd
 from tensornetwork_tpu_torch.models.infinite_mps import InfiniteMPS
-from tensornetwork_tpu_torch.models.mpo import (MPO, FiniteFreeFermion2D,
-                                               FiniteTFI, FiniteXXZ,
-                                               InfiniteMPO, mpo_to_dense)
+from tensornetwork_tpu_torch.models.mpo import (MPO, BaseMPO,
+                                               FiniteFreeFermion2D,
+                                               FiniteMPO, FiniteTFI,
+                                               FiniteXXZ, InfiniteMPO,
+                                               mpo_to_dense)
 from tensornetwork_tpu_torch.models.mps import FiniteMPS
 from tensornetwork_tpu_torch.models.tdvp import (TDVP, tdvp_one_site_sweep,
                                                  tdvp_one_site_sweep_sc,
@@ -100,3 +106,21 @@ from tensornetwork_tpu_torch.models.symmetric_dmrg import (
     SymmetricFiniteDMRG, half_filled_mps, u1_xxz_mpo)
 from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
     BatchedSymmetricDMRG)
+# quantum operators (reference ``quantum/``) and the utils
+from tensornetwork_tpu_torch import models, quantum
+from tensornetwork_tpu_torch.utils import (from_topology, load_nodes,
+                                           save_nodes, to_graphviz)
+
+
+def jit(fun=None, backend=None, backend_argnum=None, static_argnums=None,
+        **kwargs):
+    """Reference-compatible jit decorator (reference
+    ``backends/decorators.py:26-89``): the arguments are accepted and the
+    function comes back unchanged, since the port runs eagerly -- the
+    reference's own behaviour on its numpy backend."""
+    if fun is None:
+        return lambda f: f
+    return fun
+
+
+__version__ = "0.1.0"

@@ -9,6 +9,7 @@ cast back to ``torch.bfloat16``, which is exact both ways.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -89,3 +90,34 @@ def nodes_from_numpy(arrays, names: Optional[Sequence[str]] = None, *,
     names = [None] * len(arrays) if names is None else list(names)
     return [Node(_tensor(a, device, dtype), name=n)
             for a, n in zip(arrays, names)]
+
+
+def load_flax_params(module: torch.nn.Module, params: Mapping
+                     ) -> torch.nn.Module:
+    """Copy a Flax param tree (numpy arrays, ``np.asarray`` of each leaf)
+    into ``module``'s parameters, in place, and return ``module``.
+
+    A top-level ``"params"`` collection is unwrapped.  A nested mapping
+    fills a submodule: Flax's auto-names (``DenseMPO_0``, ``Dense_0``)
+    map to attribute names through the module's ``flax_names`` mapping,
+    if it has one (a key it lacks is the attribute's own name).
+    A leaf fills the parameter of its name, of the same shape; a Flax
+    ``nn.Dense`` kernel (in, out) fills a ``torch.nn.Linear`` weight (out,
+    in).  Each parameter keeps its device and dtype."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    names = getattr(module, "flax_names", {})
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            load_flax_params(getattr(module, names.get(key, key)), value)
+            continue
+        arr = np.asarray(value)
+        if isinstance(module, torch.nn.Linear) and key == "kernel":
+            key, arr = "weight", arr.T
+        target = getattr(module, key)
+        if tuple(target.shape) != arr.shape:
+            raise ValueError(f"{key}: Flax shape {arr.shape} against "
+                             f"{tuple(target.shape)}")
+        with torch.no_grad():
+            target.copy_(_tensor(arr, target.device, target.dtype))
+    return module

@@ -48,6 +48,13 @@ class MPO:
         return type(self)(torch.roll(self.Ws, -n, dims=0), self.vL, self.vR)
 
 
+# Reference-compatible aliases (reference ``matrixproductstates/mpo.py:25,
+# 77,105``): every MPO here is a uniform stack; finite and infinite differ
+# only in how the solver uses them (InfiniteMPO adds roll()).
+BaseMPO = MPO
+FiniteMPO = MPO
+
+
 class InfiniteMPO(MPO):
     """A unit-cell MPO: the same uniform stack, read as the repeating cell
     of an infinite chain (counterpart of

@@ -69,6 +69,17 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+
+def available() -> bool:
+    """Whether the solver's library loads, building it first if need be
+    (False where g++ is missing or the build fails)."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def optimal_order_masks(log_adj: np.ndarray
                         ) -> Optional[Tuple[np.ndarray, float]]:
     """Exact optimal contraction order of a log10 adjacency matrix.

@@ -102,6 +102,11 @@ def polar_complete(m: torch.Tensor, quintic_iters: Optional[int] = None,
     return Q, Q.mH @ m
 
 
+# the JAX package's name for the real case (``ops/decompositions.py:462``);
+# the port's one function takes real and complex stacks
+ns_polar_complete = polar_complete
+
+
 def _pe_best_step(l: float) -> Tuple[Tuple[float, float, float], float]:
     """One Polar Express step on the host, in float64: the odd quintic
     p(x) = a x + b x^3 + c x^5 maximising min p on [l, 1] subject to p <= 1

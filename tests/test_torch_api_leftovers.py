@@ -3,7 +3,8 @@
 The one-site sweep with ``qr_impl="polar_express"``, ``matvec_prec``
 (accepted, and without effect), ``eigsh_lanczos(num_restarts=)``, and
 ``FiniteDMRG``/``TDVP`` taking a ``FiniteMPS`` and writing the result
-back.  The paired batched
+back; the top-level names (``FiniteMPO``, ``jit``, ``__version__``, the
+utils), ``ns_polar_complete`` and ``native.available``.  The paired batched
 entry points are in tests/test_torch_paired_names.py; ``svd``/``rq``/
 ``eigh`` and ``ns_polar_express`` in tests/test_torch_factorizations.py.
 Inputs are made with numpy from a seed and handed to both packages.
@@ -220,3 +221,70 @@ def test_new_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
     assert tmps.FiniteMPS.random(3, 2, device="cpu").device.type == "cpu"
+
+
+# -- the top-level names and leftovers of the application-layer slice ----
+
+def test_top_level_names_of_the_jax_package_exist():
+    import tensornetwork_tpu as J
+    import tensornetwork_tpu_torch as T
+
+    for name in ("FiniteMPO", "BaseMPO", "jit", "__version__", "models",
+                 "quantum", "save_nodes", "load_nodes", "from_topology",
+                 "to_graphviz"):
+        assert hasattr(T, name), name
+    assert T.FiniteMPO is T.MPO and T.BaseMPO is T.MPO
+    assert T.__version__ == J.__version__
+    assert T.models.FiniteDMRG is T.FiniteDMRG
+    from tensornetwork_tpu_torch import nn, utils
+    assert {"DenseDecomp", "DenseMPO", "DenseCondenser", "DenseExpander",
+            "DenseEntangler", "Conv2DMPO"} <= set(dir(nn))
+    assert {"save_nodes", "load_nodes", "from_topology",
+            "to_graphviz"} <= set(dir(utils))
+
+
+def test_jit_returns_the_function_and_takes_the_references_arguments():
+    import tensornetwork_tpu_torch as T
+
+    def f(x, y=2):
+        return x * y
+
+    assert T.jit(f) is f
+    assert T.jit(f, backend="pytorch", backend_argnum=1,
+                 static_argnums=(1,), donate_argnums=(0,)) is f
+    deco = T.jit(static_argnums=(0,), backend="numpy")
+    assert deco(f) is f
+
+    @T.jit
+    def g(x):
+        return x + 1
+
+    assert g(torch.ones(2)).tolist() == [2.0, 2.0]
+
+
+@pytest.mark.parametrize("shape", [(8, 4), (3, 8, 4)])
+def test_ns_polar_complete_matches_jax(shape):
+    from tensornetwork_tpu.ops import decompositions as jdec
+    from tensornetwork_tpu_torch.ops import decompositions as tdec
+
+    assert tdec.ns_polar_complete is tdec.polar_complete
+    m = np.random.default_rng(5).standard_normal(shape)
+    m[..., 3] = 0.0       # rank-deficient: the completion is exercised
+    Q, P = tdec.ns_polar_complete(torch.as_tensor(m))
+    Qj, Pj = jdec.ns_polar_complete(jnp.asarray(m))
+    np.testing.assert_allclose(Q.numpy(), np.asarray(Qj), atol=1e-12)
+    np.testing.assert_allclose(P.numpy(), np.asarray(Pj), atol=1e-12)
+
+
+def test_native_available_builds_or_reports(monkeypatch):
+    from tensornetwork_tpu import native as jnative
+    from tensornetwork_tpu_torch import native
+
+    assert native.available() is True
+    assert native.available() == jnative.available()
+
+    def broken():
+        raise RuntimeError("g++ failed")
+
+    monkeypatch.setattr(native, "load", broken)
+    assert native.available() is False

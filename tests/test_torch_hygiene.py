@@ -230,3 +230,58 @@ def test_block_sparse_entry_points_raise_without_cuda(monkeypatch):
 def _structure(indices):
     from tensornetwork_tpu_torch.blocksparse.tensor import _expand_indices
     return _expand_indices(indices)
+
+
+_IMPORT_NONE_OF = """
+import importlib, pkgutil, sys
+import tensornetwork_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("flax", "optax", "orbax", "h5py", "graphviz")]
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_flax_optax_orbax_h5py_or_graphviz():
+    # the card's machine has none of them: HDF5 and graphviz are imported
+    # inside the functions that use them
+    out = subprocess.run([sys.executable, "-c", _IMPORT_NONE_OF], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_application_layer_raises_without_cuda(monkeypatch, tmp_path):
+    from tensornetwork_tpu_torch import (Node, load_nodes, nn, quantum,
+                                         save_nodes)
+    from tensornetwork_tpu_torch.benchmarks import tn_classifier
+    from tensornetwork_tpu_torch.utils import checkpoint
+    from tensornetwork_tpu_torch.utils.profiling import detect_chip
+
+    state = {"As": np.zeros((2, 2, 2, 2)), "Ws": np.zeros((2, 1, 1, 2, 2)),
+             "vL": np.ones(1), "vR": np.ones(1), "energies": np.zeros(1),
+             "sweep": np.asarray(0)}
+    path = str(tmp_path / "one.h5")
+    save_nodes([Node(torch.ones(2))], path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: nn.DenseDecomp(4, 2, input_dim=4),
+                 lambda: nn.DenseMPO(4, 2, 2, input_dim=4),
+                 lambda: nn.DenseCondenser(2, 1, input_dim=4),
+                 lambda: nn.DenseExpander(2, 1, input_dim=4),
+                 lambda: nn.DenseEntangler(4, 2, 1, input_dim=4),
+                 lambda: nn.Conv2DMPO(4, (3, 3), 2, 2, in_channels=4),
+                 lambda: tn_classifier.TNClassifier(),
+                 lambda: quantum.identity([2]),
+                 lambda: quantum.QuOperator.from_tensor(np.eye(2)),
+                 lambda: checkpoint.restore_dmrg(state),
+                 lambda: load_nodes(path)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert detect_chip() == "cpu"
+    # an explicit CPU request stays on the CPU
+    assert nn.DenseMPO(4, 2, 2, input_dim=4, device="cpu").node_0.device \
+        .type == "cpu"
+    assert checkpoint.restore_dmrg(state, device="cpu")[0].As.device.type \
+        == "cpu"
+    assert load_nodes(path, device="cpu")[0].tensor.device.type == "cpu"
