@@ -50,7 +50,15 @@ of 16 channels, strides 1 and 2, "SAME"), each against the same module
 in float64 on the CPU; the tn_keras classifier trained 300 Adam steps at
 B=128 (ms a step, idle share, test accuracy above 0.22); a 20-qubit
 state's reduced density and <Z0 Z1> against numpy, and <psi|H|psi> of
-an N=32, chi=64 MPS by the quantum operators and the greedy contractor.  K1 runs at chi=64
+an N=32, chi=64 MPS by the quantum operators and the greedy contractor.
+Then the multi-device layer on one NCCL process group of world 1 (one
+card): K1's block contract (chi=1024, a right bond of 256) against its
+twin beside the square case; dp (the B=256 batched sweeps on a ("data",)
+and a pod_layout mesh), tp (one chi=1024 chain, K1 and the collectives),
+sp (DistributedDMRG at chi=64) and ep (tensordot_sharded,
+truncated_svd_distributed, and the capacity-EP symmetric sweep at N=32,
+chi=1024, B=8), each against its unsharded path on the same inputs,
+with its time, idle share, launches and collectives.  K1 runs at chi=64
 for B=256 and the plain path's B=1, nt=2 and 4, on the route
 heff_matvec_route picks, timed in turns with the first port's SIMT
 kernel; its row of the kernels line is the path's shape, B=1, nt=2.
@@ -2865,7 +2873,6 @@ def bs_engine_phase(torch):
     g = torch.Generator(device=DEV).manual_seed(3)
     L, A, W, R = (torch.randn((SYM_B, s.data.shape[0]), generator=g,
                               device=DEV) for s in skels)
-    mv1, mv2, mv3 = prog.mv
     plans = [TE._get_plan(skels[0], skels[1], [0], [0])]
     t1 = TE.out_skeleton(plans[0])
     plans.append(TE._get_plan(t1, skels[2], [0, 2], [0, 3]))
@@ -2877,7 +2884,7 @@ def bs_engine_phase(torch):
 
     def executor():
         with highest_precision():
-            return mv3(mv2(mv1(L, A), W), R)
+            return prog.mv(L, A, W, R)
 
     def loop():
         outs = []
@@ -3007,6 +3014,7 @@ def sym_dmrg_batched_phase(torch):
     emit(phase="sym_dmrg_batched", **res)
     del d, data, mpo_data, R
     torch.cuda.empty_cache()
+    return energies[0]
 
 
 def sym_dmrg_ed_phase(torch):
@@ -3367,6 +3375,346 @@ def quantum_ops_phase(torch, card):
           f"<psi|H|psi> by the greedy contractor {e} against {e64}")
 
 
+# The multi-device layer (tensornetwork_tpu_torch/parallel/,
+# blocksparse/distributed.py) on one NCCL process group of world 1: the
+# machine has one card, and NCCL puts no two ranks on one device.  Each
+# path runs its sharded code at world 1 against the unsharded path on the
+# same inputs.  dp: bench.py's batched configuration (B=256, chi=64,
+# MD_DP_SWEEPS sweeps, fused epilogue) on a ("data",) mesh and on
+# pod_layout's ("host", "model") mesh; tp: one chain at chi=1024,
+# large_chi_phase's sweeps from random, through K1 and the collectives;
+# sp: DistributedDMRG at chi=64; ep: the JAX dry run's sector profile for
+# tensordot_sharded / truncated_svd_distributed, and BASELINE.json's cell (XXZ
+# N=32, chi=1024, B=8) in the capacity layout, one sweep against the
+# sym_dmrg_batched phase's first sweep on the same data.
+MD_DP_SWEEPS = 2
+MD_TP_CHI = 1024
+MD_TP_SWEEPS = dict((chi, s) for chi, _, s in LARGE_CHI)[MD_TP_CHI]
+MD_SP_ITERS = 3
+# dp and ep against their unsharded runs: the same kernels on the same
+# data (equal bits in the first card run); 1e-4 absolute still fails a
+# wrong sweep (a sweep from random moves E by >1e-3)
+MD_E_ATOL = 1e-4
+# sp against the unsharded sweeps: the block's gauge (an eigh of the
+# identity) changes the f32 sums, and an f32 Ritz energy at N=32
+# scatters ~+-7e-5 about the state's (README, precision trap): 9.9e-5
+# apart in the first card run.  The states themselves, in f64, within
+# MD_SP_STATE_ATOL (6.6e-9 and 5.7e-9 above the reference there)
+MD_SP_RITZ_ATOL, MD_SP_STATE_ATOL = 3e-4, 1e-6
+# K1's block contract at the tp path's width split 4 ways
+MD_RECT = (1024, 256)
+# the dry run's chi=64-class profile: two U(1) legs of 96 and 80 charges
+# in [-2, 2], seeds 11 and 12, and 48 kept singular values
+MD_EP_DIMS, MD_EP_KEEP = (96, 80), 48
+
+
+def md_counted(torch, fn):
+    """(fn(), kernel launches, collectives, wall s): every count at 0 just
+    before, read just after, the card synchronised around it."""
+    from tensornetwork_tpu_torch.ops import kernels as K
+    from tensornetwork_tpu_torch.parallel import collectives as C
+    K.reset_launch_counts()
+    C.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in K.launch_counts.items() if v}
+    routes = {k: v for k, v in K.route_counts.items() if v}
+    return out, dict(launches, routes=routes), dict(C.counts), dt
+
+
+def md_idle(torch, fn):
+    """(wall s, device busy ms, idle share) of fn(): one untraced run for
+    the wall time, one traced run for the device time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = device_busy_ms(torch, fn)
+    return wall, busy, 1 - busy / (1e3 * wall)
+
+
+def k1_rect_phase(torch):
+    """K1 on its block contract (MD_RECT: chi=1024, the right bond cut to
+    256, the tp path's local partial at 4 ranks) against its twin, beside
+    the square contract at the same chi on its tc32 route."""
+    from tensornetwork_tpu_torch.config import highest_precision
+    from tensornetwork_tpu_torch.ops import kernels as K
+    chi, cb = MD_RECT
+    sol, (Lt, W_, Rt_sq, xt_sq) = hermitian_operands(torch, 1, chi, D, M,
+                                                     seed=5)
+    L, W, R, x = sol
+    Lt, W_, Rt, xt = K.prepare_operands(L, W, R[:, :cb], x[..., :cb])
+    with highest_precision():
+        K.reset_launch_counts()
+        y = K.heff_matvec(Lt, W_, Rt, xt)
+        routes = {k: v for k, v in K.route_counts.items() if v}
+        y_plain = K.heff_matvec_plain(Lt, W_, Rt, xt)
+        torch.cuda.synchronize()
+        rel, err = max_rel(y, y_plain), float((y - y_plain).abs().max())
+        same = bool(torch.equal(y, K.heff_matvec(Lt, W_, Rt, xt)))
+        ms = cuda_ms(torch, lambda: K.heff_matvec(Lt, W_, Rt, xt), 10)
+        plain_ms = cuda_ms(torch, lambda: K.heff_matvec_plain(Lt, W_, Rt, xt),
+                           10)
+        lib_ms = cuda_ms(torch, lambda: K.heff_matvec_reference(
+            L, W, R[:, :cb], x[..., :cb]), 10)
+        square_ms = cuda_ms(torch, lambda: K.heff_matvec(Lt, W_, Rt_sq,
+                                                         xt_sq), 10)
+    flops = 4 * M * D * chi * chi * cb + 2 * M * M * D * D * chi * cb
+    nbytes = 4 * (M * chi * chi + M * cb * chi + D * chi * cb
+                  + D * chi * chi + M * M * D * D)
+    bound_ms, bound_by = bound(flops, nbytes)
+    res = dict(shape=[1, chi, cb, D, M], route="rect", route_counts=routes,
+               max_rel_err=rel, max_abs_err=err, repeat_same_bits=same,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               square_chi_ms=square_ms)
+    emit(phase="k1_rect", **res)
+    check(routes == {"heff_matvec_rect": 1},
+          f"K1's block contract took routes {routes}")
+    check(rel <= KERNEL_RTOL and same and np.isfinite(err),
+          f"K1's block contract disagrees with its twin: {rel}, repeat "
+          f"same bits {same}")
+    del sol, Lt, W_, Rt, xt, Rt_sq, xt_sq, y, y_plain
+    return res
+
+
+def md_dp_phase(torch):
+    """dp: BatchedDMRG(mesh=) at bench.py's configuration on a ("data",)
+    mesh and on pod_layout's ("host", "model") mesh, each against the
+    same BatchedDMRG without a mesh on the same inputs."""
+    from tensornetwork_tpu_torch import FiniteTFI
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.parallel import mesh as Mm
+    from tensornetwork_tpu_torch.parallel.batch import BatchedDMRG
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    As = random_mps_stack(1, BATCH * N, CHI, D, dtype=torch.float32).reshape(
+        BATCH, N, CHI, D, CHI)
+
+    def run(mesh=None, axis="data", sweeps=MD_DP_SWEEPS):
+        return BatchedDMRG(As.clone(), mpo, mesh=mesh,
+                           batch_axis=axis).run_one_site(
+            num_sweeps=sweeps, num_krylov_vecs=KRYLOV,
+            epilogue_impl="fused")
+
+    ref = run()
+    out = {}
+    for name, mesh, axis in (
+            ("data", Mm.make_mesh((1,), ("data",)), "data"),
+            ("pod", Mm.pod_layout(), "host")):
+        e, launches, coll, secs = md_counted(torch, lambda: run(mesh, axis))
+        diff = float((e - ref).abs().max())
+        out[name] = dict(seconds=secs, launches=launches, collectives=coll,
+                         max_abs_diff=diff, bitwise=bool(torch.equal(e, ref)),
+                         instance_sweeps_per_s=BATCH * MD_DP_SWEEPS / secs)
+        check(launches.get("fused_lanczos") == 2 * N * MD_DP_SWEEPS
+              and launches.get("fused_gauge_env") == N + 2 * N * MD_DP_SWEEPS,
+              f"dp on the {name} mesh: launches {launches}")
+        check(coll["all_gather"] == 1 and coll["all_reduce"] == 0,
+              f"dp on the {name} mesh: collectives {coll}, expected one "
+              f"all_gather of the energies")
+        check(e.shape == (BATCH,) and diff <= MD_E_ATOL,
+              f"dp on the {name} mesh against the unsharded run: {diff}")
+    # the idle share of one sweep from the start (its prepass included)
+    data_mesh = Mm.make_mesh((1,), ("data",))
+    wall, busy, idle = md_idle(torch, lambda: run(data_mesh, sweeps=1))
+    emit(phase="md_dp", batch=BATCH, chi=CHI, sweeps=MD_DP_SWEEPS,
+         one_sweep_busy_ms=busy, one_sweep_wall_s=wall,
+         device_idle_share=idle, **out)
+    return out["data"]["launches"]
+
+
+def md_tp_phase(torch):
+    """tp: TPShardedDMRG of one TFI N=32 chain at chi=1024 from random,
+    large_chi_phase's sweeps; every local solve a plain Lanczos whose
+    matvec is K1 and a reduce-scatter.  The state is judged in f64."""
+    from tensornetwork_tpu_torch import FiniteTFI
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.parallel import mesh as Mm
+    from tensornetwork_tpu_torch.parallel.tp import TPShardedDMRG
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    As = random_mps_stack(MD_TP_CHI, N, MD_TP_CHI, D, dtype=torch.float32)
+    mesh = Mm.make_mesh((1,), ("model",))
+    d = TPShardedDMRG(As, mpo, mesh, num_krylov_vecs=KRYLOV)
+    _, launches, coll, secs = md_counted(
+        torch, lambda: d.run_one_site(num_sweeps=MD_TP_SWEEPS))
+    de = state_delta_e(torch, d.As.to_local(), mpo64)
+    wall, busy, idle = md_idle(torch, lambda: d.run_one_site(num_sweeps=1))
+    matvecs = 2 * N * KRYLOV * MD_TP_SWEEPS
+    emit(phase="md_tp", chi=MD_TP_CHI, sweeps=MD_TP_SWEEPS, delta_E=de,
+         ritz_delta_E_per_sweep=[e - REFERENCE_ENERGY
+                                 for e in d.energies[:MD_TP_SWEEPS]],
+         seconds=secs, sweeps_per_s=MD_TP_SWEEPS / secs, launches=launches,
+         collectives=coll, sweep_wall_s=wall, device_busy_ms=busy,
+         device_idle_share=idle, local_shape=list(d.As.to_local().shape))
+    check(launches.get("heff_matvec") == matvecs
+          and launches["routes"] == {"heff_matvec_tc32": matvecs},
+          f"tp: K1 launches {launches}, expected {matvecs} on tc32")
+    check(coll["reduce_scatter"] >= matvecs,
+          f"tp: collectives {coll}")
+    check(DE_LO <= de <= DE_LARGE_HI,
+          f"tp chi={MD_TP_CHI}: delta E {de} outside [{DE_LO}, "
+          f"{DE_LARGE_HI}]")
+    del d, As
+    torch.cuda.empty_cache()
+    return launches
+
+
+def md_sp_phase(torch):
+    """sp: DistributedDMRG of one chi=64 chain (one block at world 1, its
+    in-block sweep K2's) against as many unsharded sweeps from the same
+    state, each with its prepass."""
+    from tensornetwork_tpu_torch import FiniteTFI, one_site_sweep
+    from tensornetwork_tpu_torch.models.dmrg import random_mps_stack
+    from tensornetwork_tpu_torch.parallel import mesh as Mm
+    from tensornetwork_tpu_torch.parallel.sweep import DistributedDMRG
+    mpo = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32)
+    mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
+    As = random_mps_stack(0, N, CHI, D, dtype=torch.float32)
+    d = DistributedDMRG(As, mpo, Mm.make_mesh((1,), ("sp",)),
+                        num_krylov_vecs=KRYLOV)
+    _, launches, coll, secs = md_counted(
+        torch, lambda: d.run(num_iterations=MD_SP_ITERS, tol=0))
+    ref, A = [], As
+    for _ in range(MD_SP_ITERS):
+        res = one_site_sweep(A, mpo.Ws, mpo.vL, mpo.vR,
+                             num_krylov_vecs=KRYLOV)
+        ref.append(float(res.energy))
+        A = res.As
+    diff = max(abs(a - b) for a, b in zip(d.energies, ref))
+    de, de_ref = (state_delta_e(torch, d.full_state(), mpo64),
+                  state_delta_e(torch, A, mpo64))
+    wall, busy, idle = md_idle(torch, lambda: d.run(num_iterations=1))
+    emit(phase="md_sp", chi=CHI, iterations=MD_SP_ITERS,
+         energies=d.energies[:MD_SP_ITERS],
+         unsharded=ref, max_abs_diff=diff, delta_E=de, unsharded_delta_E=de_ref,
+         seconds=secs, launches=launches, collectives=coll,
+         iteration_wall_s=wall, device_busy_ms=busy, device_idle_share=idle)
+    check(launches.get("fused_lanczos") == 2 * N * MD_SP_ITERS,
+          f"sp: launches {launches}")
+    check(diff <= MD_SP_RITZ_ATOL and abs(de - de_ref) <= MD_SP_STATE_ATOL,
+          f"sp against the unsharded sweeps: {diff}, delta E {de} / "
+          f"{de_ref}")
+    return launches
+
+
+def md_ep_phase(torch, warm_energies):
+    """ep: tensordot_sharded and truncated_svd_distributed at the dry
+    run's sector profile, then BatchedSymmetricDMRG(ep_mesh=,
+    ep_capacity=True) at BASELINE.json's block-sparse cell: one sweep
+    from sym_setup's data against the first sweep of the sym_dmrg_batched
+    phase."""
+    import tensornetwork_tpu_torch.blocksparse as T
+    from tensornetwork_tpu_torch.blocksparse import torch_engine as TE
+    from tensornetwork_tpu_torch.blocksparse.batched import env_block_len
+    from tensornetwork_tpu_torch.blocksparse.distributed import (
+        tensordot_sharded, truncated_svd_distributed)
+    from tensornetwork_tpu_torch.blocksparse.linalg import truncated_svd
+    from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
+        BatchedSymmetricDMRG)
+    from tensornetwork_tpu_torch.parallel import mesh as Mm
+    mesh = Mm.make_mesh((1,), ("ep",))
+    rng = np.random.default_rng(0)
+    c1, c2 = (T.U1Charge(rng.integers(-2, 3, n)) for n in MD_EP_DIMS)
+    a = T.randn([T.Index(c1, False), T.Index(c2, True)], seed=11,
+                dtype=torch.float32, device=DEV)
+    b = T.randn([T.Index(c2, False), T.Index(c1, True)], seed=12,
+                dtype=torch.float32, device=DEV)
+    ab, launches, coll, td_s = md_counted(
+        torch, lambda: tensordot_sharded(a, b, [[1], [0]], mesh))
+    oracle = a.todense().double().cpu() @ b.todense().double().cpu()
+    td_err = float((ab.todense().double().cpu() - oracle).abs().max())
+    (U, S, V, rest), _, svd_coll, svd_s = md_counted(
+        torch, lambda: truncated_svd_distributed(
+            a, mesh, max_singular_values=MD_EP_KEEP))
+    S0 = truncated_svd(a, max_singular_values=MD_EP_KEEP)[1]
+    s, s0 = (torch.sort(x.data, descending=True)[0] for x in (S, S0))
+    svd_err = max_rel(s, s0) if s.shape == s0.shape else float("inf")
+    check(td_err <= 1e-4 and coll["all_reduce"] == 1,
+          f"tensordot_sharded: error {td_err}, collectives {coll}")
+    check(8 < s.shape[0] <= MD_EP_KEEP and bool(torch.isfinite(s).all())
+          and svd_err <= 1e-5,
+          f"truncated_svd_distributed: kept {s.shape[0]}, against the "
+          f"single-device spectrum {svd_err}")
+    # the capacity-EP sweep at the block-sparse cell, on fresh plans
+    TE.clear_plan_cache()
+    skel, data, mpo, mpo_data, _ = sym_setup(torch, SYM_N, SYM_CHI, SYM_B)
+    t0 = time.perf_counter()
+    d = BatchedSymmetricDMRG(skel, data, mpo, mpo_data=mpo_data,
+                             ep_mesh=mesh, ep_capacity=True)
+    plan_s = d.precompile()
+    cold_s = time.perf_counter() - t0
+    R = d.right_canonicalize()
+    es, sweep_launches, sweep_coll, sweep_s = md_counted(
+        torch, lambda: d.sweep_one_site(R))
+    es = es.cpu().numpy()
+    diff = float(np.abs(es - warm_energies).max())
+    sites = list(range(N - 1)) + list(range(N - 1, 0, -1))
+    matvecs = sum(min(d.m, d.skeleton[i].data.shape[0]) for i in sites)
+    stored = [R[i].shape[1] == env_block_len(d._Rskel[i].data.shape[0], 1)
+              for i in range(1, SYM_N)]
+    busy, events = device_profile(torch, lambda: d.sweep_one_site(R))
+    emit(phase="md_ep", tensordot_s=td_s, tensordot_err=td_err,
+         tensordot_collectives=coll, svd_s=svd_s, svd_kept=int(s.shape[0]),
+         svd_rel_err=svd_err, svd_collectives=svd_coll,
+         N=SYM_N, chi=SYM_CHI, batch=SYM_B, plan_build_s=plan_s,
+         cold_start_s=cold_s, sweep_s=sweep_s, energies=es.tolist(),
+         first_sweep_energies=list(map(float, warm_energies)),
+         max_abs_diff=diff, launches=sweep_launches,
+         collectives=sweep_coll, matvecs=matvecs, device_busy_ms=busy,
+         device_events=events, device_idle_share=1 - busy / (1e3 * sweep_s))
+    check(np.all(np.isfinite(es)) and diff <= MD_E_ATOL,
+          f"capacity EP against the sym_dmrg_batched phase: {diff}")
+    check(sweep_coll["all_reduce"] == matvecs
+          and sweep_coll["reduce_scatter"] == 2 * (SYM_N - 1)
+          and all(stored),
+          f"capacity EP: collectives {sweep_coll}, expected {matvecs} "
+          f"matvec all_reduces and none in the env chain")
+    del d, data, mpo_data, R
+    TE.clear_plan_cache()
+    torch.cuda.empty_cache()
+    return sweep_launches
+
+
+def multi_device_phases(torch, warm_energies):
+    """The multi-device group: one NCCL process group of world 1 for every
+    path, destroyed at the end.  Returns the K1 measurement of the block
+    contract and the K1 launches of the tp path."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from tensornetwork_tpu_torch.parallel import mesh as Mm
+    rect = k1_rect_phase(torch)
+    tmp = tempfile.mkdtemp()
+    try:
+        check(Mm.initialize_distributed(
+            f"file://{tmp}/rendezvous", num_processes=1, process_id=0,
+            timeout=datetime.timedelta(seconds=120))
+            and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "the NCCL process group of world 1 did not start")
+        paths = {}
+        for name, path in (("dp", md_dp_phase), ("tp", md_tp_phase),
+                           ("sp", md_sp_phase)):
+            t0 = time.perf_counter()
+            paths[name] = path(torch)
+            emit(phase=f"md_{name}_seconds", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        paths["ep"] = md_ep_phase(torch, warm_energies)
+        emit(phase="md_ep_seconds", seconds=time.perf_counter() - t0)
+        emit(phase="multi_device_launches", **paths)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rect, paths
+
+
 _KP = "tensornetwork_tpu/ops/kernels.py:"
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("heff_matvec", "heff_matvec.cu", _KP + "48"),
@@ -3516,16 +3864,29 @@ def main():
 
     # block-sparse U(1) DMRG, ncon and split_node: no kernel on this path
     K.reset_launch_counts()
+    bs_out = {}
     for bs_path in (bs_engine_phase, sym_dmrg_batched_phase,
                     sym_dmrg_ed_phase, bs_network_phase):
         t0 = time.perf_counter()
-        bs_path(torch)
+        bs_out[bs_path] = bs_path(torch)
         emit(phase=bs_path.__name__[:-6] + "_seconds",
              seconds=time.perf_counter() - t0)
     counts = dict(K.launch_counts)
     emit(phase="block_sparse_launches", **counts)
     check(not any(counts.values()),
           f"a kernel launched on the block-sparse path: {counts}")
+
+    # the multi-device layer on one NCCL group of world 1, each path with
+    # its own counts
+    t0 = time.perf_counter()
+    rect, md_launches = multi_device_phases(
+        torch, bs_out[sym_dmrg_batched_phase])
+    emit(phase="multi_device_seconds", seconds=time.perf_counter() - t0)
+    meas["heff_matvec"]["rect"] = rect
+    launches["heff_matvec"] += md_launches["tp"]["heff_matvec"]
+    launches["fused_lanczos"] += (md_launches["dp"]["fused_lanczos"]
+                                  + md_launches["sp"]["fused_lanczos"])
+    launches["fused_gauge_env"] += md_launches["dp"]["fused_gauge_env"]
 
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],

@@ -22,9 +22,12 @@ in the shift direction, making exact isometric gauge fixing possible
 without dynamic bond shrinking (the reference's block-sparse QR shrinks
 bonds per sector, reference ``block_sparse/linalg.py:300``).
 
-The capacity-EP environment helpers and the chain executor of the JAX
-package (``env_*``, ``chain_contraction_plan``) wait for the multi-device
-slice.
+The sector-sharded (EP) forms run over ``torch.distributed`` with
+``ep=(ndev, group)``: :func:`contraction_plan` (one all_reduce a
+contraction), :func:`chain_contraction_plan` (one a chain, or none),
+:meth:`TwoSiteSplitPlan.__call__` (each rank's share of the sector SVDs),
+and the capacity layout's environment storage (``env_*``: each rank
+stores a 1/ndev block of every environment).
 """
 from __future__ import annotations
 
@@ -278,15 +281,93 @@ def contraction_plan(skel1: BlockSparseTensor, skel2: BlockSparseTensor,
     """(run fn, output skeleton) for a fixed structure.  The run fn maps
     data ``(..., nnz1)``, ``(..., nnz2)`` to ``(..., nnz_out)`` on the
     operands' device (a leading instance axis runs in the same batched
-    GEMMs); the skeleton's data is storage-free (``meta``).  ``ep=``, the
-    sector-sharded executor, waits for the multi-device slice."""
-    if ep is not None:
-        raise NotImplementedError(
-            "the sector-sharded executor (ep=) waits for the multi-device "
-            "slice: ROADMAP.md Queue 1 item 10")
+    GEMMs); the skeleton's data is storage-free (``meta``).
+
+    ``ep=(ndev, group)`` returns the sector-sharded executor of this rank
+    of ``group`` instead: its G/ndev slice of every bucket and one
+    ``all_reduce`` a contraction (see ``torch_engine._get_plan``); every
+    rank of the group calls it on the same operands."""
     axes1, axes2 = normalize_axes(skel1, skel2, axes)
-    plan = TE._get_plan(skel1, skel2, axes1, axes2, precision)
+    plan = TE._get_plan(skel1, skel2, axes1, axes2, precision, ep=ep)
     return plan["run"], (None if plan["scalar"] else TE.out_skeleton(plan))
+
+
+# ---------------------------------------------------------------------------
+# Capacity-EP sharded environment storage.
+#
+# Environments dominate the symmetric sweep's memory (at chi=1024 an env
+# is ~27x the MPS site it grows from), and the per-contraction EP
+# executor keeps every env whole on every rank.  The capacity layout
+# stores each env between steps as one (B, L) block a rank, L =
+# ceil(nnz/ndev): the env-growth chains run with ``reduce="none"`` and
+# reduce-scatter their disjoint-support partials straight into the blocks
+# (half an all_reduce's bytes), and consumers all-gather the current
+# bond's env for the step (the other half).  Exact by construction:
+# reduce-scatter then all-gather is the sum the all_reduce produced.
+# ---------------------------------------------------------------------------
+
+
+def env_block_len(nnz: int, ndev: int) -> int:
+    """Per-rank block length of the stored env layout (ceil div)."""
+    return -(-nnz // ndev)
+
+
+def env_scatter_stored(partial: torch.Tensor, ndev: int, group
+                       ) -> torch.Tensor:
+    """(B, nnz) disjoint-support partial of this rank -> this rank's (B,
+    L) block of the summed env (one reduce-scatter over ``group``)."""
+    from tensornetwork_tpu_torch.parallel import collectives
+    B, nnz = partial.shape
+    L = env_block_len(nnz, ndev)
+    p = torch.nn.functional.pad(partial, (0, ndev * L - nnz))
+    return collectives.reduce_scatter(p, 1, group)
+
+
+def env_gather_full(stored: torch.Tensor, nnz: int, group) -> torch.Tensor:
+    """This rank's (B, L) stored block -> the whole (B, nnz) env (one
+    all-gather over ``group``)."""
+    from tensornetwork_tpu_torch.parallel import collectives
+    return collectives.all_gather(stored, 1, group)[:, :nnz]
+
+
+def env_to_stored(full: torch.Tensor, ndev: int) -> torch.Tensor:
+    """(B, nnz) whole env -> the (B, ndev, L) stored layout, rank d's
+    block at [:, d] (for boundary envs)."""
+    B, nnz = full.shape
+    L = env_block_len(nnz, ndev)
+    p = torch.nn.functional.pad(full, (0, ndev * L - nnz))
+    return p.reshape(B, ndev, L)
+
+
+def env_from_stored(stored: torch.Tensor, nnz: int) -> torch.Tensor:
+    """(B, ndev, L) stored layout -> the (B, nnz) whole env."""
+    B = stored.shape[0]
+    return stored.reshape(B, -1)[:, :nnz]
+
+
+def chain_contraction_plan(stages, ep, precision: str = "highest",
+                           reduce: str = "psum"):
+    """Fused EP executor of a chain of contractions.
+
+    ``stages``: list of ``(skel1, skel2, axes)``, ``skel1`` None after the
+    first stage (the through-operand, the previous output).
+    ``ep=(ndev, group)``.  Returns ``(run, out_skel)``; ``run(d1_0, d2_0,
+    d2_1, ..., d2_{n-1})`` runs on every rank of ``group`` with the same
+    operands and issues ONE ``all_reduce`` (of the final output) for the
+    whole chain, against one a contraction for the per-contraction EP
+    executor; ``reduce="none"``: none, each rank keeps its partial.
+    Equal to the single-device chain: whole dependency components are
+    assigned to ranks, so the partials have disjoint support
+    (:func:`~tensornetwork_tpu_torch.blocksparse.torch_engine.
+    make_chain_executor`)."""
+    specs = []
+    for (s1, s2, axes) in stages:
+        if isinstance(axes, int):
+            raise ValueError("chain stages need explicit axes lists")
+        axes1, axes2 = [list(a) for a in axes]
+        specs.append((s1, s2, axes1, axes2))
+    return TE.make_chain_executor(specs, ep[0], ep[1], precision,
+                                  reduce=reduce)
 
 
 class TwoSiteSplitPlan:
@@ -339,24 +420,14 @@ class TwoSiteSplitPlan:
         self.left_nnz = left_skel.data.shape[0]
         self.right_nnz = right_skel.data.shape[0]
 
-    def __call__(self, theta: torch.Tensor, absorb: str, ep=None
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """theta (..., nnz) -> (left data, right data, trunc_sq).
-
-        ``absorb='right'``: left factor U isometric, right = S·Vh
-        (left-to-right sweep); ``absorb='left'``: right factor Vh
-        isometric, left = U·S.  ``ep=`` waits for the multi-device
-        slice."""
-        if ep is not None:
-            raise NotImplementedError(
-                "the distributed split (ep=) waits for the multi-device "
-                "slice: ROADMAP.md Queue 1 item 10")
+    def _apply_blocks(self, blocks, theta: torch.Tensor, absorb: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         batch_shape = theta.shape[:-1]
         maps = self.maps.on(theta.device)
         ld = theta.new_zeros(batch_shape + (self.left_nnz,))
         rd = theta.new_zeros(batch_shape + (self.right_nnz,))
         terr = theta.new_zeros(batch_shape)
-        for b in self.blocks:
+        for b in blocks:
             blk = theta[..., maps[b["map"]]]
             if b["keep"] == 0:
                 terr = terr + torch.sum(blk * blk, dim=(-2, -1))
@@ -374,3 +445,29 @@ class TwoSiteSplitPlan:
             ld[..., maps[b["lmap"]]] = lblk
             rd[..., maps[b["rmap"]]] = rblk
         return ld, rd, terr
+
+    def __call__(self, theta: torch.Tensor, absorb: str, ep=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """theta (..., nnz) -> (left data, right data, trunc_sq).
+
+        ``absorb='right'``: left factor U isometric, right = S·Vh
+        (left-to-right sweep); ``absorb='left'``: right factor Vh
+        isometric, left = U·S.
+
+        ``ep=(ndev, group)`` distributes the per-sector SVDs over the
+        ranks of ``group``: rank ``d`` factors only blocks ``d::ndev``, and
+        their disjoint scatter regions and discarded weights are summed in
+        one ``all_reduce`` (the kept ranks are the static bond profile,
+        so no global ranking is needed)."""
+        if ep is None:
+            return self._apply_blocks(self.blocks, theta, absorb)
+        from tensornetwork_tpu_torch.parallel import collectives
+        ndev, group = ep
+        rank = collectives.group_rank(group)
+        ld, rd, terr = self._apply_blocks(self.blocks[rank::ndev], theta,
+                                          absorb)
+        packed = collectives.all_reduce(
+            torch.cat([ld, rd, terr[..., None]], dim=-1), group)
+        return (packed[..., :self.left_nnz],
+                packed[..., self.left_nnz:self.left_nnz + self.right_nnz],
+                packed[..., -1])

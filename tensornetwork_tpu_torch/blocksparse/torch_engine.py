@@ -22,8 +22,17 @@ rounding, :func:`_round_dim`, is the JAX package's TPU rule (128-wide MXU
 tiles); the padded and true flops of a plan are in :func:`plan_flops`.
 The JAX package's windowed (``dynamic_slice``) fetch of wide runs is a
 TPU memory-system rule and is not ported: one ``index_select`` gathers
-any run width.  The sector-sharded (EP) executors wait for the
-multi-device slice.
+any run width.
+
+The sector-sharded (EP) executors run each rank's share of the sectors
+over ``torch.distributed``: ``ep=(ndev, group)`` in :func:`_get_plan`
+gives the rank its G/P slice of every bucket and one ``all_reduce`` a
+contraction (the sector outputs have disjoint support, so the sum is the
+reassembly); :func:`make_chain_executor` assigns whole dependency
+components of a contraction chain to ranks (:func:`_partition_chain`)
+and issues one collective a chain, or none (``reduce="none"``: each rank
+keeps its partial, for the capacity layout's reduce-scatter).  Both run
+at every world size, 1 included.
 """
 from __future__ import annotations
 
@@ -93,12 +102,14 @@ def _round_dim(x: int) -> int:
     return p
 
 
-def _build_buckets(plan):
+def _build_buckets(plan, pad_groups_to: int = 1):
     """Group sectors by padded GEMM shape so that each bucket executes as
     ONE batched matmul instead of one underfilled GEMM per charge sector.
     Each bucket holds padded (G, R, K), (G, K, C) and (G, R, C) index maps
     into the operands (padding: the zero slot at ``nnz``) and the output
-    (padding: the dummy slot at ``nnz_out``)."""
+    (padding: the dummy slot at ``nnz_out``).  ``pad_groups_to``: G is
+    rounded up to a multiple of it with all-padding groups (the EP
+    executor splits every bucket in equal rank slices)."""
     groups = {}
     for (m1, m2, mo, s1, s2) in plan["sectors"]:
         key = (_round_dim(s1[0]), _round_dim(s1[1]), _round_dim(s2[1]))
@@ -106,7 +117,7 @@ def _build_buckets(plan):
     nnz_out = 0 if plan["scalar"] else plan["out"]["nnz"]
     buckets = []
     for (R, K, C), secs in groups.items():
-        G = len(secs)
+        G = -(-len(secs) // pad_groups_to) * pad_groups_to
         M1 = np.full((G, R, K), plan["nnz1"], dtype=np.int64)
         M2 = np.full((G, K, C), plan["nnz2"], dtype=np.int64)
         MO = np.full((G, R, C), nnz_out, dtype=np.int64)
@@ -152,16 +163,33 @@ class DeviceMaps:
         return self._dev[key]
 
 
-def _get_plan(t1, t2, axes1, axes2, precision="highest"):
+def _get_plan(t1, t2, axes1, axes2, precision="highest", ep=None):
+    """The cached plan and executor of a contraction.  ``ep=(ndev,
+    group)``: the sector-sharded executor of this rank of ``group`` (its
+    G/ndev slice of every bucket, one all_reduce a contraction)."""
     key = (_structure_key(t1), _structure_key(t2), tuple(axes1),
-           tuple(axes2), precision)
+           tuple(axes2), precision, ep)
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         _PLAN_CACHE.move_to_end(key)
         return plan
     plan = _build_plan(t1, t2, axes1, axes2)
-    plan["buckets"] = _build_buckets(plan)
+    if ep is None:
+        plan["buckets"] = _build_buckets(plan)
+    else:
+        from tensornetwork_tpu_torch.parallel import collectives
+        ndev, group = ep
+        rank = collectives.group_rank(group)
+        plan["buckets"] = []
+        for b in _build_buckets(plan, pad_groups_to=ndev):
+            g = b["G"] // ndev
+            sl = slice(rank * g, (rank + 1) * g)
+            if g:
+                plan["buckets"].append(dict(
+                    b, G=g, M1=b["M1"][sl], M2=b["M2"][sl],
+                    MO=None if b["MO"] is None else b["MO"][sl]))
     plan["precision"] = precision
+    plan["ep"] = ep
     maps = plan["maps"] = DeviceMaps()
     plan["perm_slots"] = [maps.add(plan["perm1"]), maps.add(plan["perm2"])]
     for b in plan["buckets"]:
@@ -217,11 +245,260 @@ def _make_executor(plan):
                     total = total + res.sum(dim=(1, 2, 3))
                 else:
                     out.index_copy_(1, MO, res.reshape(B, -1))
+            if plan["ep"] is not None:
+                # disjoint sector outputs: the sum over ranks IS the
+                # reassembly, one all_reduce a contraction
+                from tensornetwork_tpu_torch.parallel import collectives
+                group = plan["ep"][1]
+                if plan["scalar"]:
+                    total = collectives.all_reduce(total, group)
+                else:
+                    out = collectives.all_reduce(out[:, :nnz_out], group)
             if plan["scalar"]:
                 return total.reshape(lead)
             return out[:, :nnz_out].reshape(lead + (nnz_out,))
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# The fused EP executor of a contraction chain
+# ---------------------------------------------------------------------------
+
+_CHAIN_CACHE: "OrderedDict" = OrderedDict()
+_CHAIN_CACHE_CAPACITY = 64
+
+
+class _UnionFind:
+    def __init__(self, n: int):
+        self.p = np.arange(n)
+
+    def find(self, i: int) -> int:
+        p = self.p
+        root = i
+        while p[root] != root:
+            root = p[root]
+        while p[i] != root:
+            p[i], i = root, p[i]
+        return root
+
+    def union(self, a: int, b: int):
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            self.p[rb] = ra
+
+
+def _partition_chain(raws, ndev: int):
+    """Assign every (stage, sector) of a chain to a rank.
+
+    Components of the read/write dependency graph are FLOP-weighted and
+    greedily bin-packed onto ``ndev`` ranks (heaviest first).  Sectors
+    whose through-operand input is structurally never written are dead
+    (they contribute exact zeros) and dropped; sectors whose output no
+    live downstream sector reads are pruned backwards.
+
+    Returns ``(assign, bins)``: a list over stages of int arrays (the rank
+    of each sector, -1 = dropped) and the FLOPs of each rank."""
+    n_stages = len(raws)
+    counts = [len(r["sectors"]) for r in raws]
+    offsets = np.cumsum([0] + counts)
+    uf = _UnionFind(offsets[-1])
+    live = [np.ones(c, bool) for c in counts]
+
+    prev_writer = None
+    for k, raw in enumerate(raws):
+        if k > 0:
+            perm = raw["perm1"]
+            for t, (m1, _m2, _mo, _s1, _s2) in enumerate(raw["sectors"]):
+                pos = m1.ravel()
+                if perm is not None:
+                    pos = perm[pos]
+                ws = np.unique(prev_writer[pos])
+                ws = ws[ws >= 0]
+                if ws.size == 0:
+                    live[k][t] = False
+                    continue
+                for w in ws:
+                    uf.union(offsets[k] + t, offsets[k - 1] + int(w))
+        wv = np.full(raw["out"]["nnz"], -1, np.int64)
+        for t, (_m1, _m2, mo, _s1, _s2) in enumerate(raw["sectors"]):
+            if live[k][t]:
+                wv[mo.ravel()] = t
+        prev_writer = wv
+
+    # backward prune: a sector below the last stage whose output no live
+    # downstream sector reads only produces dead intermediates
+    for k in range(n_stages - 2, -1, -1):
+        nxt = raws[k + 1]
+        perm = nxt["perm1"]
+        read = np.zeros(raws[k]["out"]["nnz"], bool)
+        for t, (m1, _m2, _mo, _s1, _s2) in enumerate(nxt["sectors"]):
+            if live[k + 1][t]:
+                pos = m1.ravel()
+                if perm is not None:
+                    pos = perm[pos]
+                read[pos] = True
+        for t, (_m1, _m2, mo, _s1, _s2) in enumerate(raws[k]["sectors"]):
+            if live[k][t] and not read[mo.ravel()].any():
+                live[k][t] = False
+
+    comp_weight: dict = {}
+    comp_nodes: dict = {}
+    for k, raw in enumerate(raws):
+        for t, (_m1, _m2, _mo, s1, s2) in enumerate(raw["sectors"]):
+            if not live[k][t]:
+                continue
+            root = uf.find(offsets[k] + t)
+            w = 2 * s1[0] * s1[1] * s2[1]  # GEMM flops
+            comp_weight[root] = comp_weight.get(root, 0) + w
+            comp_nodes.setdefault(root, []).append((k, t))
+    bins = np.zeros(ndev, np.float64)
+    dev_of_comp = {}
+    for root in sorted(comp_weight, key=comp_weight.get, reverse=True):
+        d = int(np.argmin(bins))
+        bins[d] += comp_weight[root]
+        dev_of_comp[root] = d
+    assign = [np.full(c, -1, np.int32) for c in counts]
+    for root, nodes in comp_nodes.items():
+        d = dev_of_comp[root]
+        for k, t in nodes:
+            assign[k][t] = d
+    return assign, bins
+
+
+def _stacked_stage_buckets(raw, assign_k, ndev: int):
+    """Every rank's buckets of one chain stage, stacked on a leading rank
+    axis: a list over bucket shapes of dicts with (ndev, G, R, K), (ndev,
+    G, K, C) and (ndev, G, R, C) host index maps.  Each rank's group count
+    is padded to the shape's largest with sentinel indices (reads hit the
+    zero slot, writes the dummy output slot)."""
+    nnz1, nnz2 = raw["nnz1"], raw["nnz2"]
+    out_nnz = raw["out"]["nnz"]
+    per_dev = []
+    for d in range(ndev):
+        sub = dict(raw)
+        sub["sectors"] = [s for t, s in enumerate(raw["sectors"])
+                          if assign_k[t] == d]
+        per_dev.append({(b["R"], b["K"], b["C"]): b
+                        for b in _build_buckets(sub)})
+    keys = sorted({k for bd in per_dev for k in bd})
+    stages = []
+    for (R, K, C) in keys:
+        gmax = max((bd[(R, K, C)]["M1"].shape[0]
+                    for bd in per_dev if (R, K, C) in bd), default=0)
+        if gmax == 0:
+            continue
+        M1 = np.full((ndev, gmax, R, K), nnz1, np.int64)
+        M2 = np.full((ndev, gmax, K, C), nnz2, np.int64)
+        MO = np.full((ndev, gmax, R, C), out_nnz, np.int64)
+        for d, bd in enumerate(per_dev):
+            b = bd.get((R, K, C))
+            if b is None:
+                continue
+            g = b["M1"].shape[0]
+            M1[d, :g] = b["M1"]
+            M2[d, :g] = b["M2"]
+            MO[d, :g] = b["MO"]
+        stages.append(dict(R=R, K=K, C=C, G=gmax, M1=M1, M2=M2, MO=MO))
+    return stages
+
+
+def make_chain_executor(specs, ndev: int, group,
+                        precision: str = "highest", reduce: str = "psum"):
+    """Fused EP executor of a contraction chain.
+
+    ``specs``: list of ``(skel1, skel2, axes1, axes2)``; after the first
+    stage ``skel1`` may be None (the previous stage's output, the
+    through-operand).  Returns ``(run, out_skel)``: ``run(d1_0, d2_0, d2_1,
+    ..., d2_{n-1})`` maps data ``(..., nnz)`` to the chain's output on
+    this rank of ``group`` and issues ONE ``all_reduce`` (of the final
+    output) for the whole chain.  Whole dependency components are
+    assigned to ranks, so the ranks' partials have disjoint support and
+    their sum is the single-device chain's output exactly.
+
+    ``reduce="none"`` skips the all_reduce and returns this rank's
+    partial (full length, zero off its components): the capacity layout's
+    producer, which reduce-scatters it into stored blocks
+    (:func:`~tensornetwork_tpu_torch.blocksparse.batched.
+    env_scatter_stored`)."""
+    raws, prev_out, key_parts = [], None, []
+    for k, (s1, s2, a1, a2) in enumerate(specs):
+        if s1 is None:
+            if k == 0:
+                raise ValueError("stage 0 needs an explicit first operand")
+            s1 = prev_out
+        raw = _build_plan(s1, s2, list(a1), list(a2))
+        if raw["scalar"]:
+            raise ValueError("chain stages must produce tensors")
+        key_parts.append((_structure_key(s1), _structure_key(s2),
+                          tuple(a1), tuple(a2)))
+        raws.append(raw)
+        prev_out = out_skeleton(raw)
+    key = (tuple(key_parts), ndev, group, precision, reduce)
+    cached = _CHAIN_CACHE.get(key)
+    if cached is not None:
+        _CHAIN_CACHE.move_to_end(key)
+        return cached["run"], cached["out_skel"]
+
+    from tensornetwork_tpu_torch.parallel import collectives
+    rank = collectives.group_rank(group)
+    assign, _bins = _partition_chain(raws, ndev)
+    maps = DeviceMaps()
+    stages = []
+    for k, raw in enumerate(raws):
+        buckets = [dict(G=b["G"], R=b["R"], K=b["K"], C=b["C"],
+                        slots=[maps.add(b[n][rank].reshape(-1))
+                               for n in ("M1", "M2", "MO")])
+                   for b in _stacked_stage_buckets(raw, assign[k], ndev)]
+        stages.append(dict(buckets=buckets, nnz1=raw["nnz1"],
+                           nnz2=raw["nnz2"], out_nnz=raw["out"]["nnz"],
+                           perms=[maps.add(raw["perm1"]),
+                                  maps.add(raw["perm2"])]))
+
+    def run(*data):
+        if len(data) != len(raws) + 1:
+            raise TypeError(
+                f"chain executor takes {len(raws) + 1} data vectors")
+        lead = torch.broadcast_shapes(*(d.shape[:-1] for d in data))
+        B = int(np.prod(lead, dtype=np.int64))
+        dtype = data[0].dtype
+        for d in data[1:]:
+            dtype = torch.promote_types(dtype, d.dtype)
+        dev = data[0].device
+        on = maps.on(dev)
+        ctx = (highest_precision() if precision == "highest"
+               else contextlib.nullcontext())
+
+        def operand(d, perm, nnz):
+            d = d.to(dtype).expand(lead + (nnz,)).reshape(B, nnz)
+            if perm is not None:
+                d = d.index_select(1, on[perm])
+            return torch.cat([d, d.new_zeros(B, 1)], dim=1)
+
+        with ctx:
+            cur = data[0]
+            for st, d2 in zip(stages, data[1:]):
+                d1x = operand(cur, st["perms"][0], st["nnz1"])
+                d2x = operand(d2, st["perms"][1], st["nnz2"])
+                out = torch.zeros(B, st["out_nnz"] + 1, dtype=dtype,
+                                  device=dev)
+                for b in st["buckets"]:
+                    M1, M2, MO = (on[i] for i in b["slots"])
+                    b1 = d1x.index_select(1, M1).view(B, b["G"], b["R"],
+                                                      b["K"])
+                    b2 = d2x.index_select(1, M2).view(B, b["G"], b["K"],
+                                                      b["C"])
+                    out.index_copy_(1, MO, torch.matmul(b1, b2).reshape(B, -1))
+                cur = out[:, :st["out_nnz"]].reshape(lead + (st["out_nnz"],))
+        if reduce == "none":
+            return cur
+        from tensornetwork_tpu_torch.parallel import collectives
+        return collectives.all_reduce(cur, group)
+
+    _CHAIN_CACHE[key] = dict(run=run, out_skel=prev_out)
+    while len(_CHAIN_CACHE) > _CHAIN_CACHE_CAPACITY:
+        _CHAIN_CACHE.popitem(last=False)
+    return run, prev_out
 
 
 def out_skeleton(plan, dtype=torch.float32) -> BlockSparseTensor:
@@ -268,3 +545,4 @@ def from_device(t: BlockSparseTensor) -> BlockSparseTensor:
 
 def clear_plan_cache():
     _PLAN_CACHE.clear()
+    _CHAIN_CACHE.clear()

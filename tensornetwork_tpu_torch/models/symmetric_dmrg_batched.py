@@ -19,9 +19,21 @@ non-variational.
 
 MPO disorder: pass ``mpo_data`` as N ``(B, nnz_w)`` stacks with the MPO's
 charge structure (e.g. different couplings in the XXZ W-tensors); by
-default the shared MPO is broadcast.  The multi-device options of the JAX
-class (``mesh=``, ``ep_mesh=``, ``ep_capacity=``) wait for the
-multi-device slice, and its serialized-trace cache
+default the shared MPO is broadcast.
+
+Across ranks (``torch.distributed``, a mesh of
+:func:`~tensornetwork_tpu_torch.parallel.mesh.make_mesh`): ``mesh=``
+splits the realizations over ``batch_axis`` (no collective in a sweep;
+the energies gathered once a sweep); ``ep_mesh=`` splits the charge
+sectors of every contraction over ``ep_axis`` -- the matvec and the
+environment growth as fused chains with one ``all_reduce`` each
+(:func:`~tensornetwork_tpu_torch.blocksparse.batched.
+chain_contraction_plan`), the two-site split's sector SVDs dealt over the
+ranks -- while the small gauge solves run on every rank alike;
+``ep_capacity=True`` also stores every environment as one 1/P block a
+rank, reduce-scattered from the growth chain's partials (no
+``all_reduce`` in the env chain) and gathered for the step that reads
+it.  The JAX class's serialized-trace cache
 (``export_programs``/``load_programs``) has no counterpart: the port has
 no traced program, and its cold start is the host plan build
 (:meth:`BatchedSymmetricDMRG.precompile`).
@@ -36,17 +48,16 @@ import torch
 
 from tensornetwork_tpu_torch.blocksparse import torch_engine as TE
 from tensornetwork_tpu_torch.blocksparse.batched import (
-    ShiftPlan, TwoSiteSplitPlan, contraction_plan)
+    ShiftPlan, TwoSiteSplitPlan, chain_contraction_plan, contraction_plan,
+    env_gather_full, env_scatter_stored, env_to_stored)
 from tensornetwork_tpu_torch.blocksparse.charge import U1Charge
 from tensornetwork_tpu_torch.blocksparse.index import Index
 from tensornetwork_tpu_torch.blocksparse.tensor import (
     BlockSparseTensor, _expand_indices, normalize_axes, tensordot_structure)
 from tensornetwork_tpu_torch.config import as_tensor, highest_precision
 from tensornetwork_tpu_torch.ops import krylov
-
-_MULTI_DEVICE = ("waits for the multi-device slice of the port "
-                 "(ROADMAP.md Queue 1 item 10)")
-
+from tensornetwork_tpu_torch.parallel import collectives
+from tensornetwork_tpu_torch.parallel.mesh import axis_group, axis_size
 
 def _skel(indices, dtype) -> BlockSparseTensor:
     return TE.skeleton(*_expand_indices(indices), dtype)
@@ -90,15 +101,43 @@ def _grow_right_skel(R, A, W):
     return _td_skeleton(t, A.conj(), [[1, 3], [2, 1]])
 
 
-def _chain(stages):
-    """Plans of a contraction chain: ``stages`` is a list of ``(skel1,
-    skel2, axes)``, ``skel1`` None after the first stage (the previous
-    output).  Returns the run functions and the final skeleton."""
+def _chain(stages, ep=None, reduce: str = "psum"):
+    """The run function of a contraction chain (``stages``: ``(skel1,
+    skel2, axes)``, ``skel1`` None after the first stage, the previous
+    output) and its final skeleton.  Without ``ep`` one plan a stage run
+    in turn; with ``ep=(ndev, group)`` the fused EP chain (one all_reduce,
+    or none with ``reduce="none"``)."""
+    if ep is not None:
+        return chain_contraction_plan(stages, ep, reduce=reduce)
     runs, prev = [], None
     for s1, s2, axes in stages:
         run, prev = contraction_plan(prev if s1 is None else s1, s2, axes)
         runs.append(run)
-    return runs, prev
+
+    def run_chain(d, *operands):
+        for run, d2 in zip(runs, operands):
+            d = run(d, d2)
+        return d
+
+    return run_chain, prev
+
+
+class _Capacity:
+    """The capacity layout's env traffic of one program: the whole envs
+    it reads gathered from their stored blocks, the env it grows
+    reduce-scattered into this rank's block.  ``None`` outside capacity
+    mode, where envs are whole on every rank."""
+
+    def __init__(self, ep, nnz_in):
+        self.ndev, self.group = ep
+        self.nnz_in = nnz_in
+
+    def gather(self, *stored):
+        return [env_gather_full(e, n, self.group)
+                for e, n in zip(stored, self.nnz_in)]
+
+    def scatter(self, partial):
+        return env_scatter_stored(partial, self.ndev, self.group)
 
 
 def _normalized(d: torch.Tensor) -> torch.Tensor:
@@ -120,11 +159,10 @@ def _grow_stages(direction, L_skel, R_skel, A_skel, W_skel):
             (None, A_skel.conj(), [[1, 3], [2, 1]])]
 
 
-def _grow(runs, direction, dq, dw, denv):
-    g1, g2, g3 = runs
+def _grow(run, direction, dq, dw, denv):
     if direction == "right":
-        return g3(g2(g1(denv, dq), dw), dq)
-    return g3(g2(g1(dq, denv), dw), dq)
+        return run(denv, dq, dw, dq)
+    return run(dq, denv, dw, dq)
 
 
 class _SiteProgram:
@@ -135,36 +173,46 @@ class _SiteProgram:
 
     def __init__(self, A_skel, A_next_skel, W_skel, L_skel, R_skel,
                  direction: str, num_krylov_vecs: int, ritz_method: str,
-                 reorth: bool = True):
+                 reorth: bool = True, ep=None, ep_capacity: bool = False):
         self.direction = direction
         self.m = num_krylov_vecs
         self.ritz = ritz_method
         self.reorth = reorth
+        self.cap = (_Capacity(ep, (L_skel.data.shape[0],
+                                   R_skel.data.shape[0]))
+                    if ep_capacity else None)
         self.mv, y_skel = _chain([(L_skel, A_skel, [[0], [0]]),
                                   (None, W_skel, [[0, 2], [0, 3]]),
-                                  (None, R_skel, [[1, 2], [0, 1]])])
+                                  (None, R_skel, [[1, 2], [0, 1]])], ep)
         if y_skel.data.shape != A_skel.data.shape:
             raise AssertionError("matvec output layout mismatch")
         self.shift = ShiftPlan(A_skel, direction)
         bond_skel = self.shift.bond_skel
+        # capacity mode absorbs on every rank alike: the operands are
+        # whole there anyway, so an all_reduce would buy nothing
+        ep_abs = None if ep_capacity else ep
         if direction == "right":
             # absorb P into the next site from the left: P·A_next
             self.absorb, abs_out = contraction_plan(bond_skel, A_next_skel,
-                                                    [[1], [0]])
+                                                    [[1], [0]], ep=ep_abs)
         else:
             # absorb P into the previous site from the right: A_prev·P
             self.absorb, abs_out = contraction_plan(A_next_skel, bond_skel,
-                                                    [[2], [0]])
+                                                    [[2], [0]], ep=ep_abs)
         if abs_out.data.shape != A_next_skel.data.shape:
             raise AssertionError("absorb output layout mismatch")
         self.grow, self.env_out_skel = _chain(
-            _grow_stages(direction, L_skel, R_skel, A_skel, W_skel))
+            _grow_stages(direction, L_skel, R_skel, A_skel, W_skel), ep,
+            "none" if ep_capacity else "psum")
 
     def __call__(self, dA, dA_next, dW, dL, dR):
-        mv1, mv2, mv3 = self.mv
+        """One step; in capacity mode ``dL``/``dR`` are this rank's stored
+        blocks, and so is the grown env returned."""
+        if self.cap is not None:
+            dL, dR = self.cap.gather(dL, dR)
         with highest_precision():
             evals, evecs = krylov.eigsh_lanczos(
-                lambda x: mv3(mv2(mv1(dL, x), dW), dR), dA,
+                lambda x: self.mv(dL, x, dW, dR), dA,
                 num_krylov_vecs=self.m, numeig=1, ritz_method=self.ritz,
                 reorthogonalize=self.reorth)
             qd, pd = self.shift(evecs[:, 0])
@@ -174,7 +222,9 @@ class _SiteProgram:
                 nxt = self.absorb(dA_next, pd)
             denv = _grow(self.grow, self.direction, qd, dW,
                          dL if self.direction == "right" else dR)
-            return evals[:, 0], qd, _normalized(nxt), denv
+        if self.cap is not None:
+            denv = self.cap.scatter(denv)
+        return evals[:, 0], qd, _normalized(nxt), denv
 
 
 class _CanonProgram:
@@ -182,20 +232,30 @@ class _CanonProgram:
     the sector polar shift, the absorption into the previous site, the
     right environment's growth."""
 
-    def __init__(self, A_skel, A_prev_skel, W_skel, R_skel):
+    def __init__(self, A_skel, A_prev_skel, W_skel, R_skel, ep=None,
+                 ep_capacity: bool = False):
+        self.cap = (_Capacity(ep, (R_skel.data.shape[0],))
+                    if ep_capacity else None)
         self.shift = ShiftPlan(A_skel, "left")
         self.absorb, abs_out = contraction_plan(
-            A_prev_skel, self.shift.bond_skel, [[2], [0]])
+            A_prev_skel, self.shift.bond_skel, [[2], [0]],
+            ep=None if ep_capacity else ep)
         if abs_out.data.shape != A_prev_skel.data.shape:
             raise AssertionError("canon absorb layout mismatch")
         self.grow, _ = _chain(_grow_stages("left", None, R_skel, A_skel,
-                                           W_skel))
+                                           W_skel), ep,
+                              "none" if ep_capacity else "psum")
 
     def __call__(self, dA, dA_prev, dW, dR):
+        if self.cap is not None:
+            dR, = self.cap.gather(dR)
         with highest_precision():
             qd, pd = self.shift(dA)
             prev2 = _normalized(self.absorb(dA_prev, pd))
-            return qd, prev2, _grow(self.grow, "left", qd, dW, dR)
+            denv = _grow(self.grow, "left", qd, dW, dR)
+        if self.cap is not None:
+            denv = self.cap.scatter(denv)
+        return qd, prev2, denv
 
 
 class _BondProgram:
@@ -205,18 +265,22 @@ class _BondProgram:
 
     def __init__(self, A_skel, B_skel, W1_skel, W2_skel, L_skel, R_skel,
                  direction: str, num_krylov_vecs: int, ritz_method: str,
-                 reorth: bool = True):
+                 reorth: bool = True, ep=None, ep_capacity: bool = False):
         self.direction = direction
         self.m = num_krylov_vecs
         self.ritz = ritz_method
         self.reorth = reorth
-        self.theta, theta_skel = contraction_plan(A_skel, B_skel,
-                                                  [[2], [0]])
+        self.ep = ep
+        self.cap = (_Capacity(ep, (L_skel.data.shape[0],
+                                   R_skel.data.shape[0]))
+                    if ep_capacity else None)
+        self.theta, theta_skel = contraction_plan(
+            A_skel, B_skel, [[2], [0]], ep=None if ep_capacity else ep)
         # two-site effective-H matvec chain on theta (l, s, t, r)
         self.mv, y_skel = _chain([(L_skel, theta_skel, [[0], [0]]),
                                   (None, W1_skel, [[0, 2], [0, 3]]),
                                   (None, W2_skel, [[3, 1], [0, 3]]),
-                                  (None, R_skel, [[1, 3], [0, 1]])])
+                                  (None, R_skel, [[1, 3], [0, 1]])], ep)
         if y_skel.data.shape != theta_skel.data.shape:
             raise AssertionError("2s matvec output layout mismatch")
         self.split = TwoSiteSplitPlan(theta_skel, A_skel, B_skel)
@@ -224,22 +288,26 @@ class _BondProgram:
             stages = _grow_stages("right", L_skel, None, A_skel, W1_skel)
         else:
             stages = _grow_stages("left", None, R_skel, B_skel, W2_skel)
-        self.grow, _ = _chain(stages)
+        self.grow, _ = _chain(stages, ep, "none" if ep_capacity else "psum")
 
     def __call__(self, dA, dB, dW1, dW2, dL, dR):
-        mv1, mv2, mv3, mv4 = self.mv
+        if self.cap is not None:
+            dL, dR = self.cap.gather(dL, dR)
         with highest_precision():
             evals, evecs = krylov.eigsh_lanczos(
-                lambda x: mv4(mv3(mv2(mv1(dL, x), dW1), dW2), dR),
+                lambda x: self.mv(dL, x, dW1, dW2, dR),
                 self.theta(dA, dB), num_krylov_vecs=self.m, numeig=1,
                 ritz_method=self.ritz, reorthogonalize=self.reorth)
             absorb = "right" if self.direction == "right" else "left"
-            ld, rd, terr = self.split(evecs[:, 0], absorb)
+            # EP: the sector SVDs dealt over the ranks
+            ld, rd, terr = self.split(evecs[:, 0], absorb, ep=self.ep)
             if self.direction == "right":
                 denv = _grow(self.grow, "right", ld, dW1, dL)
             else:
                 denv = _grow(self.grow, "left", rd, dW2, dR)
-            return evals[:, 0], ld, rd, terr, denv
+        if self.cap is not None:
+            denv = self.cap.scatter(denv)
+        return evals[:, 0], ld, rd, terr, denv
 
 
 class BatchedSymmetricDMRG:
@@ -259,6 +327,14 @@ class BatchedSymmetricDMRG:
     mpo_data:   optional list of N (B, nnz_w) stacks for per-realization
                 MPO disorder (same charge structure); default broadcasts
                 the shared MPO data.
+    mesh:       a mesh whose ``batch_axis`` splits the realizations: each
+                rank keeps its B/P rows of every stack (``data`` and
+                ``mpo_data`` whole on every rank, or DTensors sharded on
+                their first axis); the energies are gathered.
+    ep_mesh:    a mesh whose ``ep_axis`` splits the charge sectors of every
+                contraction; with ``ep_capacity`` every environment is
+                stored as a 1/P block a rank.  ``mesh`` and ``ep_mesh`` do
+                not go together.
     """
 
     def __init__(self, skeleton: Sequence[BlockSparseTensor],
@@ -272,10 +348,22 @@ class BatchedSymmetricDMRG:
                  ep_capacity: bool = False):
         if len(skeleton) != len(mpo):
             raise ValueError("MPS and MPO must have equal length")
-        for name, value in (("mesh", mesh), ("ep_mesh", ep_mesh),
-                            ("ep_capacity", ep_capacity or None)):
-            if value is not None:
-                raise NotImplementedError(f"{name}= {_MULTI_DEVICE}")
+        if mesh is not None and ep_mesh is not None:
+            raise ValueError(
+                "pass either mesh= (batch/DP sharding) or ep_mesh= "
+                "(sector/EP sharding), not both")
+        if ep_capacity and ep_mesh is None:
+            raise ValueError("ep_capacity=True requires ep_mesh")
+        self.ep, self.ep_capacity = None, bool(ep_capacity)
+        self._batch_group = None
+        if ep_mesh is not None:
+            self.ep = (axis_size(ep_mesh, ep_axis),
+                       axis_group(ep_mesh, ep_axis))
+        if mesh is not None:
+            self._batch_group = axis_group(mesh, batch_axis)
+            data = [self._batch_block(d) for d in data]
+            if mpo_data is not None:
+                mpo_data = [self._batch_block(d) for d in mpo_data]
         self.data = [as_tensor(d) for d in data]
         self.device = self.data[0].device
         self.N = len(skeleton)
@@ -308,6 +396,22 @@ class BatchedSymmetricDMRG:
         self.energies: List[np.ndarray] = []
         self.truncation_errors: List[np.ndarray] = []
 
+    def _batch_block(self, d):
+        """This rank's rows of a whole (B, nnz) stack (a DTensor: its
+        local block)."""
+        if hasattr(d, "to_local"):
+            return d.to_local()
+        d = as_tensor(d)
+        return d.chunk(collectives.group_size(self._batch_group)
+                       )[collectives.group_rank(self._batch_group)]
+
+    def _gather_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """(B_local,) -> (B,) over the batch group (as it is without
+        one)."""
+        if self._batch_group is None:
+            return x
+        return collectives.all_gather(x, 0, self._batch_group)
+
     # -- plans, keyed on the charge structure ------------------------------
     def _structure_sig(self, *tensors):
         return tuple(TE._structure_key(t) for t in tensors)
@@ -319,7 +423,8 @@ class BatchedSymmetricDMRG:
         if key not in self._programs:
             self._programs[key] = _CanonProgram(
                 self.skeleton[site], self.skeleton[site - 1],
-                self.mpo[site], self._Rskel[site + 1])
+                self.mpo[site], self._Rskel[site + 1], self.ep,
+                self.ep_capacity)
         return self._programs[key]
 
     def _program(self, site: int, direction: str) -> _SiteProgram:
@@ -333,7 +438,7 @@ class BatchedSymmetricDMRG:
             self._programs[key] = _SiteProgram(
                 self.skeleton[site], self.skeleton[nxt], self.mpo[site],
                 self._Lskel[site], self._Rskel[site + 1], direction,
-                self.m, self.ritz, self.reorth)
+                self.m, self.ritz, self.reorth, self.ep, self.ep_capacity)
         return self._programs[key]
 
     def _bond_program(self, bond: int, direction: str) -> _BondProgram:
@@ -346,7 +451,7 @@ class BatchedSymmetricDMRG:
                 self.skeleton[bond], self.skeleton[bond + 1],
                 self.mpo[bond], self.mpo[bond + 1],
                 self._Lskel[bond], self._Rskel[bond + 2], direction,
-                self.m, self.ritz, self.reorth)
+                self.m, self.ritz, self.reorth, self.ep, self.ep_capacity)
         return self._programs[key]
 
     def precompile(self, two_site: bool = False, verbose: int = 0) -> float:
@@ -380,9 +485,14 @@ class BatchedSymmetricDMRG:
         return dt
 
     def _boundary_env(self) -> torch.Tensor:
-        """The trivial (B, 1) boundary environment."""
-        return torch.ones((self.B, 1), dtype=self._env_dtype,
-                          device=self.device)
+        """The trivial (B, 1) boundary environment, in capacity mode this
+        rank's (B, L) block of its stored layout."""
+        e = torch.ones((self.B, 1), dtype=self._env_dtype,
+                       device=self.device)
+        if self.ep_capacity:
+            ndev, group = self.ep
+            e = env_to_stored(e, ndev)[:, collectives.group_rank(group)]
+        return e
 
     def right_canonicalize(self) -> List[torch.Tensor]:
         """Left shifts from the right end (the prepass of every run);
@@ -458,7 +568,7 @@ class BatchedSymmetricDMRG:
         e_prev = None
         es = None
         for sweep in range(num_sweeps):
-            es = self.sweep_one_site(Rdata).cpu().numpy()
+            es = self._gather_batch(self.sweep_one_site(Rdata)).cpu().numpy()
             self.energies.append(es)
             if verbose:
                 print(f"sweep {sweep}: E mean {es.mean():.10f} "
@@ -480,9 +590,10 @@ class BatchedSymmetricDMRG:
         es = None
         for sweep in range(num_sweeps):
             es, terr = self.sweep_two_site(Rdata)
-            es = es.cpu().numpy()
+            es = self._gather_batch(es).cpu().numpy()
             self.energies.append(es)
-            self.truncation_errors.append(terr.cpu().numpy())
+            self.truncation_errors.append(
+                self._gather_batch(terr).cpu().numpy())
             if verbose:
                 print(f"2s sweep {sweep}: E mean {es.mean():.10f} "
                       f"terr mean {float(terr.mean()):.3e}")

@@ -106,6 +106,7 @@ launch_counts: Dict[str, int] = {
 # fused_lanczos (fused_lanczos_instance)
 route_counts: Dict[str, int] = {"heff_matvec_tc32": 0,
                                 "heff_matvec_simt": 0,
+                                "heff_matvec_rect": 0,
                                 "fused_lanczos_tc<3,2>": 0,
                                 "fused_lanczos_tc<3,4>": 0,
                                 "fused_lanczos_tc<0,0>": 0,
@@ -128,7 +129,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _ARGTYPES = {
-    "tn_heff_matvec": [_P, _L] + [_P] * 6 + [_I] * 5 + [_P],
+    "tn_heff_matvec": [_P, _L] + [_P] * 6 + [_I] * 7 + [_P],
     "tn_fused_lanczos": [_P, _L, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _D, _P],
     "tn_fused_lanczos_streamed": [_P, _L] + [_P] * 10 + [_I] * 7
@@ -219,11 +220,24 @@ def _wspec(W) -> str:
 def _validate(Lt, W, Rt, xt) -> Tuple[int, int, int, int, int]:
     """Shapes, dtypes, devices and contiguity the kernels take.  Returns
     (B, chi, d, M, stride of W between instances)."""
+    B, chi, d, M, w_stride, chib, chid = _validate_rect(Lt, W, Rt, xt)
+    if chib != chi or chid != chi:
+        raise ValueError(f"shape mismatch: Lt {tuple(Lt.shape)}, Rt "
+                         f"{tuple(Rt.shape)}, xt {tuple(xt.shape)}")
+    return B, chi, d, M, w_stride
+
+
+def _validate_rect(Lt, W, Rt, xt) -> Tuple[int, int, int, int, int, int,
+                                            int]:
+    """:func:`_validate` for K1's contract, whose right bond may be a
+    block: xt (B, d, chi, chib), Rt (B, M, chib, chid) -> y (B, d, chi,
+    chid).  Returns (B, chi, d, M, stride of W, chib, chid)."""
     if xt.dim() != 4 or Lt.dim() != 4 or Rt.dim() != 4:
         raise ValueError("Lt, Rt, xt must be (B, *, chi, chi)")
-    B, d, chi, chi2 = xt.shape
+    B, d, chi, chib = xt.shape
     M = Lt.shape[1]
-    if chi != chi2 or Lt.shape != (B, M, chi, chi) or Rt.shape != Lt.shape:
+    chid = Rt.shape[3]
+    if Lt.shape != (B, M, chi, chi) or Rt.shape != (B, M, chib, chid):
         raise ValueError(f"shape mismatch: Lt {tuple(Lt.shape)}, Rt "
                          f"{tuple(Rt.shape)}, xt {tuple(xt.shape)}")
     if W.shape == (M, M, d, d):
@@ -246,7 +260,7 @@ def _validate(Lt, W, Rt, xt) -> Tuple[int, int, int, int, int]:
         raise ValueError("Lt, W, Rt, xt must be contiguous")
     if xt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xt.device}")
-    return B, chi, d, M, w_stride
+    return B, chi, d, M, w_stride, chib, chid
 
 
 # ---------------------------------------------------------------------------
@@ -255,34 +269,46 @@ def _validate(Lt, W, Rt, xt) -> Tuple[int, int, int, int, int]:
 
 
 def heff_matvec_plain(Lt, W, Rt, xt):
-    """Plain-PyTorch twin of :func:`heff_matvec` (same two stages)."""
+    """Plain-PyTorch twin of :func:`heff_matvec` (same two stages), on
+    the square and the block contract alike."""
     P = torch.matmul(Lt[:, :, None], xt[:, None])            # (B, w, t, c, b)
     Q = torch.einsum(f"{_wspec(W)},Bwtcb->Bvscb", W, P)      # (B, v, s, c, b)
     return torch.matmul(Q, Rt[:, :, None]).sum(1)            # (B, s, c, d)
 
 
-_HEFF_ROUTES = ("simt", "tc32")
+_HEFF_ROUTES = ("simt", "tc32", "rect")
 
 
 def heff_matvec_route(chi: int, nt: int, M: int, B: int,
-                      dtype: torch.dtype) -> str:
-    """The kernel route of :func:`heff_matvec` for CUDA tensors: f64 ->
+                      dtype: torch.dtype, chib: Optional[int] = None,
+                      chid: Optional[int] = None) -> str:
+    """The kernel route of :func:`heff_matvec` for CUDA tensors.  The
+    square contract (``chib = chid = chi``, the default): f64 ->
     ``"simt"`` (heff.cuh's fp64 tile GEMM, unchanged); f32 -> ``"tc32"``
     (the 3xTF32 tensor-core core in three launches, 64 x 64 tiles spread
     over the card) at every shape.  ``benchmarks/k1_routes.py`` (device
     time by torch.profiler, H100 80GB HBM3 at 700 W, M=3) found it faster
     than the f32 SIMT kernel at all 32 points of B 1/8/64/256, chi
-    32/64/128/256, nt 2/4."""
-    del chi, nt, M, B  # one route a dtype
+    32/64/128/256, nt 2/4.  A right bond cut to a block (the bond-sharded
+    sweep's local partial, ``chib`` or ``chid`` != ``chi``) takes
+    ``"rect"``, a SIMT tile GEMM with the block's extents, in either
+    dtype."""
+    del nt, M, B  # one route a dtype and contract
+    if (chib is not None and chib != chi) or (chid is not None
+                                              and chid != chi):
+        return "rect"
     return "tc32" if dtype == torch.float32 else "simt"
 
 
 def heff_matvec(Lt, W, Rt, xt):
     """Batched H_eff matvec on kernel-layout operands with any number of
     physical tiles (d one-site; d*d two-site with W the fused couplings);
-    returns y (B, d, chi, chi).  Counterpart of ``make_heff_matvec``.  CUDA
-    tensors take the route :func:`heff_matvec_route` picks: f32 on the
-    3xTF32 tensor-core core, f64 on the SIMT core."""
+    returns y (B, d, chi, chid).  Counterpart of ``make_heff_matvec``.
+    The right bond may be a block (the bond-sharded sweep's local
+    partial): xt (B, d, chi, chib) and Rt (B, M, chib, chid) give the sum
+    over this block of b.  CUDA tensors take the route
+    :func:`heff_matvec_route` picks: f32 on the 3xTF32 tensor-core core,
+    f64 on the SIMT core, a block contract on the rectangular SIMT GEMM."""
     return _heff_launch(Lt, W, Rt, xt, None)
 
 
@@ -297,18 +323,21 @@ def heff_matvec_simt(Lt, W, Rt, xt):
 def _heff_launch(Lt, W, Rt, xt, route):
     """K1 on ``route``, or the route :func:`heff_matvec_route` picks for
     None; the twin for CPU tensors."""
-    B, chi, d, M, w_stride = _validate(Lt, W, Rt, xt)
+    B, chi, d, M, w_stride, chib, chid = _validate_rect(Lt, W, Rt, xt)
     if xt.device.type == "cpu":
         return heff_matvec_plain(Lt, W, Rt, xt)
+    rect = heff_matvec_route(chi, d, M, B, xt.dtype, chib, chid) == "rect"
     if route is None:
-        route = heff_matvec_route(chi, d, M, B, xt.dtype)
-    P = torch.empty((B, M * d, chi, chi), dtype=xt.dtype, device=xt.device)
-    Q = torch.empty_like(P) if route == "tc32" else None
-    y = torch.empty_like(xt)
+        route = heff_matvec_route(chi, d, M, B, xt.dtype, chib, chid)
+    elif rect:
+        raise ValueError(f"route {route!r} takes the square contract only")
+    P = torch.empty((B, M * d, chi, chib), dtype=xt.dtype, device=xt.device)
+    Q = torch.empty_like(P) if route in ("tc32", "rect") else None
+    y = torch.empty((B, d, chi, chid), dtype=xt.dtype, device=xt.device)
     _launch("tn_heff_matvec", xt.dtype, xt.device,
             W.data_ptr(), w_stride, Lt.data_ptr(), Rt.data_ptr(),
             xt.data_ptr(), P.data_ptr(), _ptr(Q), y.data_ptr(), B, chi, d, M,
-            _HEFF_ROUTES.index(route))
+            chib, chid, _HEFF_ROUTES.index(route))
     launch_counts["heff_matvec"] += 1
     route_counts["heff_matvec_" + route] += 1
     return y

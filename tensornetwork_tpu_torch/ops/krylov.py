@@ -81,11 +81,24 @@ def lanczos_factorization_sc(matvec: Callable, v0: torch.Tensor,
     return V, alphas.real, betas.real
 
 
+def _norm(v: torch.Tensor, reduce) -> torch.Tensor:
+    """Per-instance norm of (B, n) rows; with ``reduce``, of rows whose
+    blocks lie on several ranks (``reduce`` sums a partial over them)."""
+    if reduce is None:
+        return torch.linalg.vector_norm(v, dim=-1)
+    return torch.sqrt(reduce((torch.conj(v) * v).real.sum(-1)))
+
+
 def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
-             real_alpha):
+             real_alpha, reduce=None):
+    """``reduce``: None, or the sum over ranks of a per-rank partial, for
+    vectors whose entries are split over ranks (each rank holds a block of
+    every row, and each inner product is a local partial and one
+    ``reduce``)."""
     B, n = v0.shape
     m = num_krylov_vecs
-    nrm = torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+    red = (lambda x: x) if reduce is None else reduce
+    nrm = _norm(v0, reduce)[:, None]
     v = torch.where(nrm > delta, v0 / torch.where(nrm > delta, nrm, 1.0),
                     torch.zeros_like(v0))
     V = torch.zeros((B, m, n), dtype=v0.dtype, device=v0.device)
@@ -96,7 +109,7 @@ def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
     for j in range(m):
         vj = V[:, j]
         w = matvec(vj).to(V.dtype)
-        alpha = _bdot(vj, w)
+        alpha = red(_bdot(vj, w))
         if real_alpha:
             alpha = alpha.real.to(w.dtype)
         w = w - alpha[:, None] * vj
@@ -105,9 +118,10 @@ def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
         if reorthogonalize:
             # twice-is-enough classical Gram-Schmidt against rows <= j
             for _ in range(2):
-                coeffs = torch.einsum("Bkn,Bn->Bk", torch.conj(V[:, :j + 1]), w)
+                coeffs = red(torch.einsum("Bkn,Bn->Bk",
+                                          torch.conj(V[:, :j + 1]), w))
                 w = w - torch.einsum("Bkn,Bk->Bn", V[:, :j + 1], coeffs)
-        wnorm = torch.linalg.vector_norm(w, dim=-1)
+        wnorm = _norm(w, reduce)
         alphas[:, j] = torch.where(alive, alpha, LARGE)
         alive = alive & (wnorm > delta)
         if j < m - 1:
@@ -172,7 +186,8 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
                   num_krylov_vecs: int = 20, numeig: int = 1,
                   reorthogonalize: bool = True, delta: float = 1e-8,
                   num_restarts: int = 1, ritz_method: str = "eigh",
-                  power_iters: int = 60
+                  power_iters: int = 60,
+                  reduce: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smallest ``numeig`` eigenpairs of a Hermitian operator, per instance.
 
@@ -180,17 +195,21 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
     same.  Returns ``(evals (B, numeig), vecs (B, numeig, *shape))``.
     ``num_restarts > 1`` repeats the factorization from each instance's
     best Ritz vector so far, trading matvecs for basis memory, as the JAX
-    package's ``eigsh_lanczos`` does."""
+    package's ``eigsh_lanczos`` does.  ``reduce``: for states split over
+    ranks, the sum over them of a per-rank partial (see
+    :func:`_lanczos`); ``initial_state`` and ``matvec`` are then this
+    rank's block."""
     B, shape = initial_state.shape[0], initial_state.shape[1:]
     n = initial_state[0].numel()
-    num_krylov_vecs = min(num_krylov_vecs, n)
+    if reduce is None:
+        num_krylov_vecs = min(num_krylov_vecs, n)
 
     def mv(x):
         return matvec(x.reshape((B,) + shape)).reshape(B, n)
 
     def one_pass(state):
-        V, alphas, betas = lanczos_factorization(
-            mv, state, num_krylov_vecs, reorthogonalize, delta)
+        V, alphas, betas = _lanczos(mv, state, num_krylov_vecs,
+                                    reorthogonalize, delta, False, reduce)
         alphas, betas = alphas.real, betas.real
         if ritz_method == "power" and numeig == 1:
             lam, w = tridiag_ritz(alphas, betas, "power", power_iters)
@@ -203,7 +222,8 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
             evals, evecs = torch.linalg.eigh(T)
         vecs = torch.einsum("Bkn,Bke->Ben", V,
                             evecs[:, :, :numeig].to(V.dtype))
-        norms = torch.linalg.vector_norm(vecs, dim=-1, keepdim=True)
+        norms = _norm(vecs.reshape(-1, n), reduce).reshape(
+            vecs.shape[:-1] + (1,))
         return evals[:, :numeig], vecs / torch.where(norms > delta, norms,
                                                      1.0)
 

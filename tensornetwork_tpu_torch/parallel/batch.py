@@ -21,6 +21,10 @@ from tensornetwork_tpu_torch.config import Device, as_tensor, highest_precision
 from tensornetwork_tpu_torch.models import dmrg as _dmrg
 from tensornetwork_tpu_torch.models import tdvp as _tdvp
 from tensornetwork_tpu_torch.models.mpo import MPO
+from tensornetwork_tpu_torch.parallel import collectives
+from tensornetwork_tpu_torch.parallel import mesh as _mesh
+from tensornetwork_tpu_torch.parallel.mesh import (  # noqa: F401
+    batch_spec, make_mesh)  # the JAX module's names
 
 
 def batched_one_site_sweep(As_batch, Ws, vL, vR, num_krylov_vecs: int = 10,
@@ -150,14 +154,42 @@ def batched_two_site_sweep_paired(As_batch, Ws, vL, vR,
 
 
 class BatchedDMRG:
-    """Ground-state search over many instances at once on one device.
-    Tensors stay on their device; anything else goes to
-    :func:`~tensornetwork_tpu_torch.config.default_device`."""
+    """Ground-state search over many instances at once.
 
-    def __init__(self, As_batch, mpo: MPO, device: Optional[Device] = None):
-        self.As = as_tensor(As_batch, device)
+    Without ``mesh``, on one device: tensors stay on their device,
+    anything else goes to
+    :func:`~tensornetwork_tpu_torch.config.default_device`.  With a mesh
+    (:func:`~tensornetwork_tpu_torch.parallel.mesh.make_mesh`), the
+    instances ride its ``batch_axis``: each rank sweeps its B/P instances
+    (``As_batch`` is the whole batch, rank 0's distributed, or a DTensor
+    sharded on its leading axis), the MPO is replicated, and the energies
+    are gathered over ``batch_axis`` once, at the end of a run.  The
+    sweeps themselves run no collective: instances do not interact."""
+
+    def __init__(self, As_batch, mpo: MPO, mesh=None,
+                 batch_axis: str = "data", device: Optional[Device] = None):
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        if mesh is None:
+            self.As = as_tensor(As_batch, device)
+        else:
+            if not hasattr(As_batch, "to_local"):
+                As_batch = _mesh.shard_array(
+                    as_tensor(As_batch, device or mesh.device_type), mesh,
+                    batch_spec(mesh, batch_axis, As_batch.dim()))
+                mpo = MPO(*(_mesh.local(_mesh.replicate(t, mesh))
+                            for t in (mpo.Ws, mpo.vL, mpo.vR)))
+            self.As = _mesh.local(As_batch)
         self.mpo = mpo
         self.energies = None
+
+    def _gather(self, energies: torch.Tensor) -> torch.Tensor:
+        """The (B,) energies of the whole batch: the local ones without a
+        mesh, else one all_gather over ``batch_axis``."""
+        if self.mesh is None:
+            return energies
+        return collectives.all_gather(
+            energies, 0, _mesh.axis_group(self.mesh, self.batch_axis))
 
     def run_one_site(self, num_sweeps: int = 4,
                      num_krylov_vecs: int = 10,
@@ -170,7 +202,8 @@ class BatchedDMRG:
                 self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
                 num_krylov_vecs=num_krylov_vecs,
                 epilogue_impl=epilogue_impl, renvs=renvs)
-            self.As, self.energies, renvs = res.As, res.energy, res.renvs
+            self.As, renvs = res.As, res.renvs
+        self.energies = self._gather(res.energy)
         return self.energies
 
     def run_two_site(self, num_sweeps: int = 4,
@@ -182,7 +215,8 @@ class BatchedDMRG:
             res = batched_two_site_sweep(
                 self.As, self.mpo.Ws, self.mpo.vL, self.mpo.vR,
                 num_krylov_vecs=num_krylov_vecs, renvs=renvs)
-            self.As, self.energies, renvs = res.As, res.energy, res.renvs
+            self.As, renvs = res.As, res.renvs
+        self.energies = self._gather(res.energy)
         return self.energies
 
 

@@ -48,6 +48,31 @@ def _operands(B, chi, d, M, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chi,cb,nt,B", [(64, 16, 2, 3), (80, 40, 4, 2),
+                                         (100, 25, 2, 1)])
+def test_heff_matvec_block_contract_matches_twin(cuda, dtype, chi, cb, nt,
+                                                 B):
+    """K1 on a block of the right bond (the bond-sharded sweep's partial:
+    xt (B, nt, chi, cb), Rt (B, M, cb, chi)) takes route "rect"."""
+    rng = np.random.default_rng(chi + cb)
+    M = 3
+    L, R = (rng.standard_normal((B, chi, M, chi)) for _ in range(2))
+    W = rng.standard_normal((M, M, nt, nt))
+    x = rng.standard_normal((B, chi, nt, chi))
+    Lt, Wt, Rt, xt = TK.prepare_operands(*(
+        torch.as_tensor(a, dtype=dtype, device=cuda)
+        for a in (L, W, R[:, :cb], x[..., :cb])))
+    TK.reset_launch_counts()
+    y = TK.heff_matvec(Lt, Wt, Rt, xt)
+    assert TK.route_counts["heff_matvec_rect"] == 1
+    assert y.shape == (B, nt, chi, chi)
+    with highest_precision():
+        ref = TK.heff_matvec_plain(Lt, Wt, Rt, xt)
+    assert _rel(y, ref) < TOL[dtype][0]
+    assert torch.equal(y, TK.heff_matvec(Lt, Wt, Rt, xt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("chi", [24, 64, 80])  # partial, one and 2x2 tiles
 def test_heff_matvec_kernel_matches_twin(cuda, dtype, chi):
     Lt, W, Rt, xt = _operands(3, chi, 2, 3, dtype, cuda)

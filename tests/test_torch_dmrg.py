@@ -19,6 +19,15 @@ from tensornetwork_tpu_torch.ops import kernels as TK
 from tensornetwork_tpu_torch.parallel import batch as tbatch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Many tiny torch ops (see test_torch_tdvp.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _start(rng, shape):
     chi, d = shape[-1], shape[-2]
     return rng.standard_normal(shape) / np.sqrt(chi * d)

@@ -285,3 +285,47 @@ def test_application_layer_raises_without_cuda(monkeypatch, tmp_path):
     assert checkpoint.restore_dmrg(state, device="cpu")[0].As.device.type \
         == "cpu"
     assert load_nodes(path, device="cpu")[0].tensor.device.type == "cpu"
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    return names
+
+
+def test_multi_device_layer_and_rank_helper_import_no_jax():
+    # the parallel modules run on the card's machine, and the rank helper
+    # is what the spawned test ranks load: neither may reach JAX
+    paths = sorted((REPO / "tensornetwork_tpu_torch" / "parallel")
+                   .glob("*.py"))
+    paths += [REPO / "tensornetwork_tpu_torch" / "blocksparse"
+              / "distributed.py", REPO / "tests" / "torch_ranks.py"]
+    assert len(paths) >= 7
+    for path in paths:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "jaxlib", "tensornetwork_tpu")]
+        assert not bad, (path, bad)
+
+
+def test_mesh_goes_on_the_card_unless_asked(monkeypatch):
+    # no process group here: every sharded entry point refuses, none falls
+    # back to the unsharded path; and with no card the default mesh
+    # device raises as default_device does
+    import torch.distributed as dist
+
+    from tensornetwork_tpu_torch.parallel import mesh as M
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        M.make_mesh((1,), ("data",), device="cpu")
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(key, raising=False)
+    assert M.initialize_distributed() is False
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.initialize_distributed()
+    assert not dist.is_initialized()

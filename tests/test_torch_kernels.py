@@ -15,6 +15,16 @@ import torch
 from tensornetwork_tpu.ops import kernels as JK
 from tensornetwork_tpu_torch.ops import kernels as TK
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Many tiny torch ops (see test_torch_tdvp.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
 # f32: the two sides sum the same products in other orders (XLA's dot vs
 # torch's matmul); over chi*M*d-term sums that is a few ulp of the result's

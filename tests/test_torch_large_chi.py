@@ -23,6 +23,16 @@ from tensornetwork_tpu_torch import interop
 from tensornetwork_tpu_torch.models import dmrg as tdmrg
 from tensornetwork_tpu_torch.ops import kernels as TK
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Many tiny torch ops (see test_torch_tdvp.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 HIGHEST = jax.lax.Precision.HIGHEST
 DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
 # One matvec: both sides sum the same products in other orders, a few ulp

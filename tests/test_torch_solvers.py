@@ -18,6 +18,15 @@ from tensornetwork_tpu_torch.ops import decompositions as tdec
 from tensornetwork_tpu_torch.ops import krylov as tkrylov
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Many tiny torch ops (see test_torch_tdvp.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)

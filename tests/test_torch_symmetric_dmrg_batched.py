@@ -101,10 +101,17 @@ def test_float32_after_precompile_is_variational():
 def test_multi_device_options_name_their_queue_item():
     skel, data = _skeleton(8, 6)
     mpo = TS.u1_xxz_mpo(1.0, 1.0, 0.0, N, device="cpu")
+    # the multi-device options run on a process group (none here) and keep
+    # the JAX class's checks
     for kw in (dict(mesh=object()), dict(ep_mesh=object()),
-               dict(ep_capacity=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+               dict(ep_mesh=object(), ep_capacity=True)):
+        with pytest.raises(RuntimeError, match="process group"):
             BatchedSymmetricDMRG(skel, data, mpo, **kw)
+    with pytest.raises(ValueError, match="requires ep_mesh"):
+        BatchedSymmetricDMRG(skel, data, mpo, ep_capacity=True)
+    with pytest.raises(ValueError, match="not both"):
+        BatchedSymmetricDMRG(skel, data, mpo, mesh=object(),
+                             ep_mesh=object())
 
 
 def test_power_ritz_keeps_a_converged_vector():

@@ -17,6 +17,16 @@ from tensornetwork_tpu.parallel import batch as jbatch
 from tensornetwork_tpu_torch import interop
 from tensornetwork_tpu_torch.parallel import batch as tbatch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Many tiny torch ops (see test_torch_tdvp.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 # The power Ritz solve freezes at a point set by the last bits of T on the
 # first sweep from a random start (tests/test_torch_dmrg.py): 1e-6 relative
 # on the energies; the polar gauge and truncation carry ~1e-6 into the

@@ -22,6 +22,16 @@ from tensornetwork_tpu_torch.models import mpo as tmpo
 from tensornetwork_tpu_torch.ops import kernels as TK
 from tensornetwork_tpu_torch.parallel import batch as tbatch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Many tiny torch ops (see test_torch_tdvp.py)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 # ---------------------------------------------------------------------------
 # The sweeps against the JAX sweeps
 # ---------------------------------------------------------------------------
