@@ -39,8 +39,9 @@ CPU tensors or ``device="cpu"``.
 """
 from tensornetwork_tpu_torch import config, interop
 from tensornetwork_tpu_torch.config import (
-    Config, DefaultBackend, config_context, default_device, get_config,
-    get_default_backend, highest_precision, set_default_backend)
+    Config, DefaultBackend, config_context, default_device,
+    enable_persistent_compilation_cache, get_config, get_default_backend,
+    highest_precision, set_default_backend)
 from tensornetwork_tpu_torch.ops.ncon import finalize, ncon
 from tensornetwork_tpu_torch.ops import krylov
 from tensornetwork_tpu_torch.ops.decompositions import (

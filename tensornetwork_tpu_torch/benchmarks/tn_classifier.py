@@ -16,7 +16,7 @@ unless ``device="cpu"``; each training step runs in full fp32
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from torch import nn
 
 from tensornetwork_tpu_torch.config import (Device, default_device,
                                             highest_precision)
+from tensornetwork_tpu_torch.interop import load_flax_params
 from tensornetwork_tpu_torch.nn import DenseDecomp, DenseMPO
 from tensornetwork_tpu_torch.nn.layers import lecun_normal
 
@@ -95,10 +96,12 @@ def make_step(model: nn.Module) -> Callable:
 
 def main(steps: int = 300, batch: int = 128,
          device: Optional[Device] = None,
-         on_step: Optional[Callable[[int, torch.Tensor], None]] = None):
+         on_step: Optional[Callable[[int, torch.Tensor], None]] = None,
+         params: Optional[Mapping] = None):
     """Train ``steps`` Adam steps at ``batch``; returns (test accuracy,
     model).  ``on_step(k, loss)`` is called after step ``k`` is enqueued
-    (the loss a device tensor)."""
+    (the loss a device tensor).  ``params``: a Flax param tree of the JAX
+    example's model to start from (:func:`interop.load_flax_params`)."""
     device = default_device(device)
     x_train, y_train = (torch.as_tensor(a, device=device)
                         for a in synthetic_mnist(4096))
@@ -106,6 +109,8 @@ def main(steps: int = 300, batch: int = 128,
                       for a in synthetic_mnist(1024, seed=1))
     model = TNClassifier(device, generator=torch.Generator(
         device=device).manual_seed(0))
+    if params is not None:
+        load_flax_params(model, params)
     step = make_step(model)
     rng = np.random.default_rng(0)
     for k in range(steps):

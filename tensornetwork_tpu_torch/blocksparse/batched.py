@@ -166,11 +166,12 @@ def _matricization_meta(t: BlockSparseTensor, partition: int):
                                 partition)
 
 
-def _bond_matrix_skeleton(bond: BaseCharge, dtype) -> BlockSparseTensor:
+def _bond_matrix_skeleton(bond: BaseCharge, dtype,
+                          nnz: Optional[int] = None) -> BlockSparseTensor:
     """Square bond matrix skeleton with legs (bond[False], bond[True])."""
     charges, flows, order = _expand_indices(
         [Index(bond.copy(), False), Index(bond.copy(), True)])
-    return TE.skeleton(charges, flows, order, dtype)
+    return TE.skeleton(charges, flows, order, dtype, nnz)
 
 
 def _sector_label_map(charges: BaseCharge) -> Dict[Tuple, int]:
@@ -192,6 +193,7 @@ class ShiftPlan:
     def __init__(self, skel: BlockSparseTensor, direction: str):
         if direction not in ("right", "left"):
             raise ValueError(direction)
+        TE.build_counts["shift_plans"] += 1
         self.direction = direction
         partition = 2 if direction == "right" else 1
         sec, maps, shapes = _matricization_meta(skel, partition)
@@ -244,6 +246,38 @@ class ShiftPlan:
         self.identity_bond = [
             (self.maps.add(bmaps[j]), bshapes[j])
             for j in range(len(bsec)) if j not in seen_bond]
+
+    def to_record(self) -> Tuple[dict, List[np.ndarray]]:
+        """``(meta, arrays)``: JSON-able metadata and the host index maps."""
+        return (dict(direction=self.direction, nnz=int(self.nnz),
+                     bond_nnz=int(self.bond_nnz),
+                     groups=[[int(g["k"]), g["gather"], g["bond"]]
+                             for g in self.groups],
+                     identity=[[slot, [int(n) for n in shape]]
+                               for slot, shape in self.identity_bond]),
+                list(self.maps.host))
+
+    @classmethod
+    def from_record(cls, skel: BlockSparseTensor, meta: dict,
+                    arrays: Sequence[np.ndarray]) -> "ShiftPlan":
+        """The plan of :meth:`to_record`'s record for the site skeleton
+        ``skel``, without the host build."""
+        if meta["nnz"] != skel.data.shape[0]:
+            raise ValueError(f"shift plan of {meta['nnz']} values for a "
+                             f"site of {skel.data.shape[0]}")
+        self = cls.__new__(cls)
+        self.direction = meta["direction"]
+        bond = skel.flat_charges[2 if self.direction == "right" else 0]
+        self.bond_skel = _bond_matrix_skeleton(bond, skel.dtype,
+                                               meta["bond_nnz"])
+        self.nnz, self.bond_nnz = meta["nnz"], meta["bond_nnz"]
+        self.maps = TE.DeviceMaps()
+        self.maps.host = list(arrays)
+        self.groups = [dict(k=k, gather=gather, bond=bond_slot)
+                       for k, gather, bond_slot in meta["groups"]]
+        self.identity_bond = [(slot, tuple(shape))
+                              for slot, shape in meta["identity"]]
+        return self
 
     def __call__(self, data: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

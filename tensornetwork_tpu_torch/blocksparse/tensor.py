@@ -46,13 +46,17 @@ def torch_dtype(dtype) -> torch.dtype:
 
 def device_index(arr: np.ndarray, device) -> torch.Tensor:
     """A host int64 index array as a long tensor on ``device`` (shared
-    memory on the CPU, one copy to the card)."""
-    arr = np.ascontiguousarray(arr, dtype=np.int64)
+    memory on the CPU, one copy to the card).  An int32 array (a plan read
+    from a file) crosses as int32 and is widened where it lands."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.int32:
+        arr = arr.astype(np.int64, copy=False)
     if any(s < 0 for s in arr.strides):
         # a view of < 2 entries may keep a negative stride: torch refuses it
         arr = arr.copy()
     t = torch.from_numpy(arr)
-    return t if torch.device(device).type == "cpu" else t.to(device)
+    t = t if torch.device(device).type == "cpu" else t.to(device)
+    return t.long()
 
 
 def is_blocksparse(t) -> bool:

@@ -33,16 +33,25 @@ components of a contraction chain to ranks (:func:`_partition_chain`)
 and issues one collective a chain, or none (``reduce="none"``: each rank
 keeps its partial, for the capacity layout's reduce-scatter).  Both run
 at every world size, 1 included.
+
+A single-device plan can be saved and restored without its host build:
+:func:`plan_to_record` gives its index maps and metadata, and a cache
+miss inside :func:`preloaded` restores the plan of that key from its
+record (:mod:`~tensornetwork_tpu_torch.blocksparse.plan_store` is the
+file).  :func:`recording` collects the plans a block of code is handed,
+and ``build_counts`` counts the host builds.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from tensornetwork_tpu_torch.blocksparse.plan_store import charge_from_spec
 from tensornetwork_tpu_torch.blocksparse.tensor import (
     BlockSparseTensor, _check_contracted_legs, _lookup_key,
     _sector_triples, compute_num_nonzero, device_index, normalize_axes,
@@ -51,6 +60,12 @@ from tensornetwork_tpu_torch.config import default_device, highest_precision
 
 _PLAN_CACHE: "OrderedDict" = OrderedDict()
 _PLAN_CACHE_CAPACITY = 512  # plans pin device index maps; bound the cache
+# host builds of plan metadata: contraction plans (every call of
+# _build_plan) and the gauge shifts' plans (blocksparse.batched.ShiftPlan)
+build_counts = {"plans": 0, "shift_plans": 0}
+# the lists that recording() fills, and the records preloaded() offers
+_RECORDERS: List[list] = []
+_PENDING: Dict[str, Callable] = {}
 
 
 def _structure_key(t: BlockSparseTensor):
@@ -72,6 +87,7 @@ def _build_plan(t1: BlockSparseTensor, t2: BlockSparseTensor,
                 axes1: List[int], axes2: List[int]):
     """Host metadata of the executor; mirrors ``tensor.tensordot`` and
     reads no data."""
+    build_counts["plans"] += 1
     st = tensordot_structure(t1, t2, axes1, axes2)
     perm1 = (None if st["flat_perm1"] == list(range(len(t1._charges)))
              else transpose_perm(t1._charges, t1._flows, st["flat_perm1"]))
@@ -163,6 +179,36 @@ class DeviceMaps:
         return self._dev[key]
 
 
+def plan_key_digest(key) -> str:
+    """sha256 of a plan's cache key: its name in a plan file."""
+    return hashlib.sha256(repr(key).encode()).hexdigest()
+
+
+@contextlib.contextmanager
+def recording():
+    """Collects ``(key, plan)`` of every plan :func:`_get_plan` hands out
+    inside the block, cached or built: the plans one program replays."""
+    used: list = []
+    _RECORDERS.append(used)
+    try:
+        yield used
+    finally:
+        _RECORDERS.pop()
+
+
+@contextlib.contextmanager
+def preloaded(records: Dict[str, Callable]):
+    """Inside the block, a cache miss whose key digest is in ``records``
+    (digest -> a function returning ``(meta, arrays)`` of
+    :func:`plan_to_record`) restores that plan instead of building it."""
+    _PENDING.update(records)
+    try:
+        yield
+    finally:
+        for digest in records:
+            _PENDING.pop(digest, None)
+
+
 def _get_plan(t1, t2, axes1, axes2, precision="highest", ep=None):
     """The cached plan and executor of a contraction.  ``ep=(ndev,
     group)``: the sector-sharded executor of this rank of ``group`` (its
@@ -172,7 +218,19 @@ def _get_plan(t1, t2, axes1, axes2, precision="highest", ep=None):
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         _PLAN_CACHE.move_to_end(key)
-        return plan
+    else:
+        record = _PENDING.get(plan_key_digest(key)) if _PENDING else None
+        plan = (_new_plan(t1, t2, axes1, axes2, precision, ep)
+                if record is None else plan_from_record(*record()))
+        _PLAN_CACHE[key] = plan
+        while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
+            _PLAN_CACHE.popitem(last=False)
+    for used in _RECORDERS:
+        used.append((key, plan))
+    return plan
+
+
+def _new_plan(t1, t2, axes1, axes2, precision, ep):
     plan = _build_plan(t1, t2, axes1, axes2)
     if ep is None:
         plan["buckets"] = _build_buckets(plan)
@@ -188,6 +246,9 @@ def _get_plan(t1, t2, axes1, axes2, precision="highest", ep=None):
                 plan["buckets"].append(dict(
                     b, G=g, M1=b["M1"][sl], M2=b["M2"][sl],
                     MO=None if b["MO"] is None else b["MO"][sl]))
+    # the per-sector maps live on in the buckets; keep the shapes only
+    plan["sectors"] = [(None, None, None, s1, s2)
+                       for (_, _, _, s1, s2) in plan["sectors"]]
     plan["precision"] = precision
     plan["ep"] = ep
     maps = plan["maps"] = DeviceMaps()
@@ -196,9 +257,70 @@ def _get_plan(t1, t2, axes1, axes2, precision="highest", ep=None):
         b["slots"] = [None if b[k] is None else maps.add(b[k].reshape(-1))
                       for k in ("M1", "M2", "MO")]
     plan["run"] = _make_executor(plan)
-    _PLAN_CACHE[key] = plan
-    while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
-        _PLAN_CACHE.popitem(last=False)
+    return plan
+
+
+def plan_to_record(plan) -> Tuple[dict, List[np.ndarray]]:
+    """``(meta, arrays)`` of a single-device plan: JSON-able metadata, and
+    its host index maps, output charges and sector shapes.  The executor is
+    not saved; :func:`plan_from_record` makes it anew."""
+    if plan["ep"] is not None:
+        raise ValueError("a sector-sharded plan belongs to its process group")
+    arrays = list(plan["maps"].host)
+    out = None
+    if plan["out"] is not None:
+        o = plan["out"]
+        out = dict(nnz=int(o["nnz"]), flows=[bool(f) for f in o["flows"]],
+                   order=[[int(i) for i in g] for g in o["order"]],
+                   types=[[t.__name__ for t in c.charge_types]
+                          for c in o["charges"]])
+        arrays += [c.charges for c in o["charges"]]
+    arrays.append(np.array([list(s1) + list(s2)
+                            for (*_, s1, s2) in plan["sectors"]],
+                           dtype=np.int64).reshape(-1, 4))
+    meta = dict(n_maps=len(plan["maps"].host),
+                perm_slots=plan["perm_slots"], scalar=bool(plan["scalar"]),
+                nnz1=int(plan["nnz1"]), nnz2=int(plan["nnz2"]),
+                precision=plan["precision"], out=out,
+                buckets=[[b["R"], b["K"], b["C"], b["G"], b["slots"]]
+                         for b in plan["buckets"]])
+    return meta, arrays
+
+
+def plan_from_record(meta: dict, arrays: Sequence[np.ndarray]):
+    """The plan of :func:`plan_to_record`'s record, with a new executor:
+    the same buckets in the same order, so it replays the same bits."""
+    n = meta["n_maps"]
+    maps = DeviceMaps()
+    maps.host = list(arrays[:n])
+    out, k = None, n
+    if meta["out"] is not None:
+        o = meta["out"]
+        out = dict(nnz=o["nnz"], flows=list(o["flows"]),
+                   order=[list(g) for g in o["order"]],
+                   charges=[charge_from_spec(arrays[k + i], types)
+                            for i, types in enumerate(o["types"])])
+        k += len(o["types"])
+
+    def host(slot):
+        return None if slot is None else maps.host[slot]
+
+    buckets = [dict(R=R, K=K, C=C, G=G,
+                    M1=host(slots[0]).reshape(G, R, K),
+                    M2=host(slots[1]).reshape(G, K, C),
+                    MO=None if slots[2] is None
+                    else host(slots[2]).reshape(G, R, C),
+                    slots=list(slots))
+               for R, K, C, G, slots in meta["buckets"]]
+    slots = meta["perm_slots"]
+    plan = dict(perm1=host(slots[0]), perm2=host(slots[1]),
+                sectors=[(None, None, None, (r, c1), (r2, c))
+                         for r, c1, r2, c in arrays[k].tolist()],
+                scalar=meta["scalar"], out=out, nnz1=meta["nnz1"],
+                nnz2=meta["nnz2"], buckets=buckets,
+                precision=meta["precision"], ep=None, maps=maps,
+                perm_slots=list(slots))
+    plan["run"] = _make_executor(plan)
     return plan
 
 

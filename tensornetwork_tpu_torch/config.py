@@ -175,3 +175,23 @@ class DefaultBackend:
     def __exit__(self, *a):
         global _DEFAULT_BACKEND
         _DEFAULT_BACKEND = self._prev
+
+
+def enable_persistent_compilation_cache(path: str,
+                                        min_compile_time_secs: float = 1.0
+                                        ) -> None:
+    """Point the port's on-disk build caches at ``path``: the CUDA kernels'
+    libraries (``ops._build.BUILD_ROOT``) and the native path solver's
+    (``native.BUILD_ROOT``), each keyed by a hash of its sources and flags
+    under ``path``.  Counterpart of the JAX function that turns on XLA's
+    compilation cache; without a call both stay in the package's
+    ``build/``.  Libraries already loaded stay loaded.  Safe to call more
+    than once.
+
+    ``min_compile_time_secs`` is the JAX function's argument, accepted and
+    ignored: every build is cached, however short."""
+    from pathlib import Path
+
+    from tensornetwork_tpu_torch import native
+    from tensornetwork_tpu_torch.ops import _build
+    _build.BUILD_ROOT = native.BUILD_ROOT = Path(path)

@@ -33,19 +33,30 @@ ranks -- while the small gauge solves run on every rank alike;
 ``ep_capacity=True`` also stores every environment as one 1/P block a
 rank, reduce-scattered from the growth chain's partials (no
 ``all_reduce`` in the env chain) and gathered for the step that reads
-it.  The JAX class's serialized-trace cache
-(``export_programs``/``load_programs``) has no counterpart: the port has
-no traced program, and its cold start is the host plan build
-(:meth:`BatchedSymmetricDMRG.precompile`).
+it.
+
+The cold start is the host plan build (:meth:`BatchedSymmetricDMRG.
+precompile`), where the JAX package traces and compiles.  As the JAX
+class serializes its traced programs, the port writes each one-site
+program's plans to a file (:meth:`~BatchedSymmetricDMRG.export_programs`,
+or over worker processes, :meth:`~BatchedSymmetricDMRG.
+export_programs_parallel`), and a later process installs them
+(:meth:`~BatchedSymmetricDMRG.load_programs`) and skips the build: its
+:meth:`~BatchedSymmetricDMRG.precompile` then only copies index maps to
+the device.  The files hold index maps and metadata, no pickle
+(:mod:`~tensornetwork_tpu_torch.blocksparse.plan_store`).
 """
 from __future__ import annotations
 
+import hashlib
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tensornetwork_tpu_torch.blocksparse import plan_store
 from tensornetwork_tpu_torch.blocksparse import torch_engine as TE
 from tensornetwork_tpu_torch.blocksparse.batched import (
     ShiftPlan, TwoSiteSplitPlan, chain_contraction_plan, contraction_plan,
@@ -173,7 +184,8 @@ class _SiteProgram:
 
     def __init__(self, A_skel, A_next_skel, W_skel, L_skel, R_skel,
                  direction: str, num_krylov_vecs: int, ritz_method: str,
-                 reorth: bool = True, ep=None, ep_capacity: bool = False):
+                 reorth: bool = True, ep=None, ep_capacity: bool = False,
+                 shift: Optional[ShiftPlan] = None):
         self.direction = direction
         self.m = num_krylov_vecs
         self.ritz = ritz_method
@@ -186,7 +198,8 @@ class _SiteProgram:
                                   (None, R_skel, [[1, 2], [0, 1]])], ep)
         if y_skel.data.shape != A_skel.data.shape:
             raise AssertionError("matvec output layout mismatch")
-        self.shift = ShiftPlan(A_skel, direction)
+        self.shift = (shift if shift is not None
+                      else ShiftPlan(A_skel, direction))
         bond_skel = self.shift.bond_skel
         # capacity mode absorbs on every rank alike: the operands are
         # whole there anyway, so an all_reduce would buy nothing
@@ -233,10 +246,12 @@ class _CanonProgram:
     right environment's growth."""
 
     def __init__(self, A_skel, A_prev_skel, W_skel, R_skel, ep=None,
-                 ep_capacity: bool = False):
+                 ep_capacity: bool = False,
+                 shift: Optional[ShiftPlan] = None):
         self.cap = (_Capacity(ep, (R_skel.data.shape[0],))
                     if ep_capacity else None)
-        self.shift = ShiftPlan(A_skel, "left")
+        self.shift = (shift if shift is not None
+                      else ShiftPlan(A_skel, "left"))
         self.absorb, abs_out = contraction_plan(
             A_prev_skel, self.shift.bond_skel, [[2], [0]],
             ep=None if ep_capacity else ep)
@@ -416,29 +431,50 @@ class BatchedSymmetricDMRG:
     def _structure_sig(self, *tensors):
         return tuple(TE._structure_key(t) for t in tensors)
 
-    def _canon_program(self, site: int) -> _CanonProgram:
-        key = ("canon", self._structure_sig(
+    def _install(self, key, make):
+        """``self._programs[key] = make()``, the program keeping the
+        ``(key, plan)`` list of the plans it replays (``plans``)."""
+        with TE.recording() as used:
+            prog = make()
+        prog.plans = used
+        self._programs[key] = prog
+        return prog
+
+    def _canon_sig(self, site: int):
+        return self._structure_sig(
             self.skeleton[site], self.skeleton[site - 1], self.mpo[site],
-            self._Rskel[site + 1]))
-        if key not in self._programs:
-            self._programs[key] = _CanonProgram(
+            self._Rskel[site + 1])
+
+    def _site_sig(self, site: int, direction: str):
+        nxt = site + 1 if direction == "right" else site - 1
+        return self._structure_sig(
+            self.skeleton[site], self.skeleton[nxt], self.mpo[site],
+            self._Lskel[site], self._Rskel[site + 1])
+
+    def _canon_program(self, site: int,
+                       shift: Optional[ShiftPlan] = None) -> _CanonProgram:
+        """The canonicalising program of ``site``; with ``shift`` (a
+        restored plan) made anew around it."""
+        key = ("canon", self._canon_sig(site))
+        if key not in self._programs or shift is not None:
+            self._install(key, lambda: _CanonProgram(
                 self.skeleton[site], self.skeleton[site - 1],
                 self.mpo[site], self._Rskel[site + 1], self.ep,
-                self.ep_capacity)
+                self.ep_capacity, shift))
         return self._programs[key]
 
-    def _program(self, site: int, direction: str) -> _SiteProgram:
+    def _program(self, site: int, direction: str,
+                 shift: Optional[ShiftPlan] = None) -> _SiteProgram:
         # keyed on the charge STRUCTURE, not the site index: sites of a
         # smooth bond profile may share structures
         nxt = site + 1 if direction == "right" else site - 1
-        key = (direction, self._structure_sig(
-            self.skeleton[site], self.skeleton[nxt], self.mpo[site],
-            self._Lskel[site], self._Rskel[site + 1]))
-        if key not in self._programs:
-            self._programs[key] = _SiteProgram(
+        key = (direction, self._site_sig(site, direction))
+        if key not in self._programs or shift is not None:
+            self._install(key, lambda: _SiteProgram(
                 self.skeleton[site], self.skeleton[nxt], self.mpo[site],
                 self._Lskel[site], self._Rskel[site + 1], direction,
-                self.m, self.ritz, self.reorth, self.ep, self.ep_capacity)
+                self.m, self.ritz, self.reorth, self.ep, self.ep_capacity,
+                shift))
         return self._programs[key]
 
     def _bond_program(self, bond: int, direction: str) -> _BondProgram:
@@ -447,20 +483,21 @@ class BatchedSymmetricDMRG:
             self.mpo[bond], self.mpo[bond + 1],
             self._Lskel[bond], self._Rskel[bond + 2]))
         if key not in self._programs:
-            self._programs[key] = _BondProgram(
+            self._install(key, lambda: _BondProgram(
                 self.skeleton[bond], self.skeleton[bond + 1],
                 self.mpo[bond], self.mpo[bond + 1],
                 self._Lskel[bond], self._Rskel[bond + 2], direction,
-                self.m, self.ritz, self.reorth, self.ep, self.ep_capacity)
+                self.m, self.ritz, self.reorth, self.ep, self.ep_capacity))
         return self._programs[key]
 
     def precompile(self, two_site: bool = False, verbose: int = 0) -> float:
         """Build every plan of the one-site sweep (and of the two-site
         sweep with ``two_site``) and copy its index maps to the data's
         device: the cold start that the first sweep would otherwise pay.
+        After :meth:`load_programs` only the copies are left to make.
         Returns the seconds spent."""
         t0 = time.perf_counter()
-        n0 = len(TE._PLAN_CACHE)
+        n0 = TE.build_counts["plans"]
         for site in range(self.N - 1, 0, -1):
             self._canon_program(site)
         for site in range(self.N - 1):
@@ -469,9 +506,9 @@ class BatchedSymmetricDMRG:
             if two_site:
                 self._bond_program(site, "right")
                 self._bond_program(site, "left")
-        for plan in list(TE._PLAN_CACHE.values()):
-            plan["maps"].on(self.device)
         for prog in self._programs.values():
+            for _, plan in prog.plans:
+                plan["maps"].on(self.device)
             for shift in (getattr(prog, "shift", None),
                           getattr(prog, "split", None)):
                 if shift is not None:
@@ -481,8 +518,194 @@ class BatchedSymmetricDMRG:
         dt = time.perf_counter() - t0
         if verbose:
             print(f"precompile: {len(self._programs)} programs, "
-                  f"{len(TE._PLAN_CACHE) - n0} new plans in {dt:.1f} s")
+                  f"{TE.build_counts['plans'] - n0} plans built in "
+                  f"{dt:.1f} s")
         return dt
+
+    # -- the cold-start cache: each one-site program's plans in a file -----
+    def _export_sig(self, kind: str, sig) -> str:
+        """sha256 (hex) naming a program's file, over the fields of the
+        JAX key with torch's version and the plan-file format in place of
+        JAX's version: the kind, the structure signature, the data and MPO
+        dtypes, m, the Ritz method and reorthogonalisation.  B is left
+        out: a plan is index maps of the charge structure, the same for
+        every batch.  The dtypes and solver settings change no plan
+        either; they stay, as in the JAX key, so that a file names the
+        solver it was written for.  A file's name is the first 24 hex
+        digits; its header holds all 64."""
+        payload = repr((torch.__version__, plan_store.FORMAT, kind, sig,
+                        str(self.data[0].dtype), str(self.mpo_data[0].dtype),
+                        self.m, self.ritz, self.reorth))
+        return hashlib.sha256(payload.encode()).hexdigest()
+
+    def _program_file(self, path: str, key: str) -> str:
+        return os.path.join(path, key[:24] + ".tnplan")
+
+    def _iter_program_keys(self):
+        """(kind, sig, ref) for every one-site program, deduplicated by
+        structure: the canonicalising programs for site N-1 ... 1, then
+        the "right" and "left" site programs.  ``sig`` is the program's
+        key in ``_programs``; ``ref`` the site, or (site, direction)."""
+        seen = set()
+        for site in range(self.N - 1, 0, -1):
+            sig = ("canon", self._canon_sig(site))
+            if sig not in seen:
+                seen.add(sig)
+                yield ("canon", sig, site)
+        for direction, sites in (("right", range(self.N - 1)),
+                                 ("left", range(self.N - 1, 0, -1))):
+            for site in sites:
+                sig = (direction, self._site_sig(site, direction))
+                if sig not in seen:
+                    seen.add(sig)
+                    yield ("site", sig, (site, direction))
+
+    def _single_device(self, what: str):
+        if self.ep is not None or self._batch_group is not None:
+            raise ValueError(f"{what} is for the single-device path")
+
+    def export_programs(self, path: str, verbose: int = 0,
+                        subset: Optional[Sequence[int]] = None) -> int:
+        """Write every one-site program's plans to ``path``, one file a
+        program (named by :meth:`_export_sig`): the contraction plans of
+        its matvec, absorption and environment growth, and its gauge
+        shift's plan, from which the output skeletons the step checks are
+        made again.  Builds the plans a program lacks; skips files that
+        exist.  ``subset``: indices into :meth:`_iter_program_keys`, the
+        share of one worker of :meth:`export_programs_parallel`.  Returns
+        the number of files written."""
+        self._single_device("export")
+        os.makedirs(path, exist_ok=True)
+        n = 0
+        for idx, (kind, sig, ref) in enumerate(self._iter_program_keys()):
+            if subset is not None and idx not in subset:
+                continue
+            key = self._export_sig(kind, sig)
+            fname = self._program_file(path, key)
+            if os.path.exists(fname):
+                continue
+            prog = (self._canon_program(ref) if kind == "canon"
+                    else self._program(*ref))
+            _write_program(fname, key, kind, prog)
+            n += 1
+            if verbose:
+                print(f"exported {kind} program -> {fname}")
+        return n
+
+    def _worker_spec(self) -> dict:
+        """Picklable reconstruction spec for export workers: the charge
+        structures, dtypes and solver settings (the data's values change
+        no plan, so workers rebuild with zeros)."""
+        def spec(t):
+            return ([plan_store.charge_spec(c) for c in t.flat_charges],
+                    [bool(f) for f in t.flat_flows],
+                    [[int(i) for i in g] for g in t._order],
+                    str(t.dtype).split(".")[-1])
+
+        return dict(skeleton=[spec(t) for t in self.skeleton],
+                    mpo=[spec(w) for w in self.mpo],
+                    data_dtype=str(self.data[0].dtype).split(".")[-1],
+                    mpo_dtype=str(self.mpo_data[0].dtype).split(".")[-1],
+                    m=self.m, ritz=self.ritz, reorth=self.reorth)
+
+    def export_programs_parallel(self, path: str, workers: int = 2,
+                                 verbose: int = 0,
+                                 timeout: float = 1800.0) -> int:
+        """:meth:`export_programs` for the missing files, over ``workers``
+        processes (``spawn``), each given an index-stride slice of the
+        program keys.  A worker rebuilds the solver on the CPU with zero
+        data (a plan is host work, the same on every device) and writes
+        the files :meth:`export_programs` would, byte for byte.  Raises
+        ``RuntimeError`` if a worker fails or outlives ``timeout``
+        seconds (it is killed).  Returns the number of files written."""
+        import multiprocessing as mp
+        self._single_device("export")
+        os.makedirs(path, exist_ok=True)
+        keys = list(self._iter_program_keys())
+        files = [self._program_file(path, self._export_sig(kind, sig))
+                 for kind, sig, _ in keys]
+        missing = [i for i, f in enumerate(files) if not os.path.exists(f)]
+        if not missing:
+            return 0
+        workers = max(1, min(workers, len(missing)))
+        if workers == 1:
+            return self.export_programs(path, verbose=verbose,
+                                        subset=set(missing))
+        ctx = mp.get_context("spawn")
+        # the spec goes by queue: as an argument (~1 MB at chi=1024) it
+        # would hold each start until the worker before had imported the
+        # package, and the workers would run one after another
+        specs = ctx.Queue()
+        procs = [ctx.Process(target=_export_worker,
+                             args=(specs, path, set(missing[i::workers]),
+                                   timeout))
+                 for i in range(workers)]
+        for p in procs:
+            p.start()
+        spec = self._worker_spec()
+        for _ in procs:
+            specs.put(spec)
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            # specs a dead worker never took must not hold this process
+            specs.cancel_join_thread()
+            specs.close()
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            raise RuntimeError(f"export workers failed or timed out after "
+                               f"{timeout} s: exit codes {codes}")
+        n = sum(os.path.exists(files[i]) for i in missing)
+        if verbose:
+            print(f"parallel export: {n}/{len(missing)} programs via "
+                  f"{workers} workers")
+        return n
+
+    def load_programs(self, path: str, verbose: int = 0) -> int:
+        """Install the programs whose files are in ``path`` (written by
+        :meth:`export_programs`, possibly by another process) into
+        ``_programs``, and their plans into the plan cache, without
+        building any: each program's executors are made anew around the
+        restored plans, which replay the same buckets in the same order as
+        built ones.  A file whose stored key differs from this solver's
+        raises ``ValueError``.  Returns the number installed."""
+        self._single_device("load")
+        n = 0
+        for kind, sig, ref in self._iter_program_keys():
+            key = self._export_sig(kind, sig)
+            fname = self._program_file(path, key)
+            if not os.path.exists(fname):
+                continue
+            pf = plan_store.PlanFile(fname)
+            head = pf.header
+            if (head.get("format"), head.get("key"), head.get("kind")) != (
+                    plan_store.FORMAT, key, kind):
+                raise ValueError(
+                    f"{fname}: stored key {head.get('key')} ({head.get('kind')}"
+                    f", format {head.get('format')}) does not match this "
+                    f"solver's {key} ({kind}, format {plan_store.FORMAT})")
+            records = {p["digest"]: (lambda p=p: (p["meta"],
+                                                  pf.record(p["record"])))
+                       for p in head["plans"]}
+            site = ref if kind == "canon" else ref[0]
+            shift = ShiftPlan.from_record(
+                self.skeleton[site], head["shift"]["meta"],
+                pf.record(head["shift"]["record"]))
+            with TE.preloaded(records):
+                if kind == "canon":
+                    self._canon_program(site, shift)
+                else:
+                    self._program(site, ref[1], shift)
+            n += 1
+            if verbose:
+                print(f"loaded {kind} program <- {fname}")
+        return n
 
     def _boundary_env(self) -> torch.Tensor:
         """The trivial (B, 1) boundary environment, in capacity mode this
@@ -602,3 +825,51 @@ class BatchedSymmetricDMRG:
                 break
             e_prev = e_mean
         return es
+
+
+def _write_program(fname: str, key: str, kind: str, prog) -> int:
+    """One program's file: the records of its distinct plans, in the order
+    it was handed them, then its gauge shift's."""
+    head = dict(format=plan_store.FORMAT, key=key, kind=kind, plans=[])
+    records, seen = [], set()
+    for pkey, plan in prog.plans:
+        digest = TE.plan_key_digest(pkey)
+        if digest in seen:
+            continue
+        seen.add(digest)
+        meta, arrays = TE.plan_to_record(plan)
+        head["plans"].append(dict(digest=digest, meta=meta,
+                                  record=len(records)))
+        records.append(arrays)
+    meta, arrays = prog.shift.to_record()
+    head["shift"] = dict(meta=meta, record=len(records))
+    records.append(arrays)
+    return plan_store.write(fname, head, records)
+
+
+def _export_worker(specs, path: str, subset, timeout: float):
+    """Process entry of :meth:`BatchedSymmetricDMRG.
+    export_programs_parallel`: the solver rebuilt on the CPU with zero
+    data from the spec taken off the queue ``specs``, exporting the given
+    key subset."""
+    torch.set_num_threads(1)
+    spec = specs.get(timeout=timeout)
+
+    def skel(s):
+        charges, flows, order, dtype = s
+        return TE.skeleton([plan_store.charge_from_spec(*c) for c in charges],
+                           flows, order, getattr(torch, dtype))
+
+    skeleton = [skel(s) for s in spec["skeleton"]]
+    mpo = [skel(s) for s in spec["mpo"]]
+    data = [torch.zeros((1, t.data.shape[0]),
+                        dtype=getattr(torch, spec["data_dtype"]))
+            for t in skeleton]
+    mpo_data = [torch.zeros((1, w.data.shape[0]),
+                            dtype=getattr(torch, spec["mpo_dtype"]))
+                for w in mpo]
+    solver = BatchedSymmetricDMRG(skeleton, data, mpo, mpo_data=mpo_data,
+                                  num_krylov_vecs=spec["m"],
+                                  ritz_method=spec["ritz"],
+                                  reorth=spec["reorth"])
+    solver.export_programs(path, subset=subset)

@@ -308,7 +308,21 @@ def ep_solver(rank, world, inp):
     return out
 
 
-JOBS = {"dense": dense, "ep_ops": ep_ops, "ep_solver": ep_solver}
+def example_distributed(rank, world, inp):
+    """``examples.distributed_symmetric_dmrg`` in the ranks' group: the
+    single-device and capacity-EP energies, the files written (rank 0)
+    and the programs installed."""
+    from tensornetwork_tpu_torch.examples import (
+        distributed_symmetric_dmrg as ex)
+    es_ref, es_ep, written, loaded = ex.compare(
+        inp["N"], inp["chi"], inp["B"], inp["sweeps"], inp["export_dir"],
+        device="cpu")
+    return dict(es_ref=np.asarray(es_ref), es_ep=np.asarray(es_ep),
+                written=np.array(written), loaded=np.array(loaded))
+
+
+JOBS = {"dense": dense, "ep_ops": ep_ops, "ep_solver": ep_solver,
+        "example_distributed": example_distributed}
 
 
 def main(argv):
