@@ -45,6 +45,7 @@ from tensornetwork_tpu_torch.blocksparse.tensor import (
 from tensornetwork_tpu_torch.config import Device, default_device
 from tensornetwork_tpu_torch.ops.decompositions import (polar_complete,
                                                         thin_svd)
+from tensornetwork_tpu_torch.utils import tracing
 
 
 def canonical_bond_charges(N: int, chi: int, n_total: Optional[int] = None,
@@ -279,6 +280,7 @@ class ShiftPlan:
                               for slot, shape in meta["identity"]]
         return self
 
+    @tracing.spanned("shift")
     def __call__(self, data: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """data (..., nnz) -> (Q data (..., nnz), bond data (..., bond_nnz)).

@@ -57,6 +57,7 @@ from tensornetwork_tpu_torch.blocksparse.tensor import (
     _sector_triples, compute_num_nonzero, device_index, normalize_axes,
     outerproduct, tensordot_structure, transpose_perm)
 from tensornetwork_tpu_torch.config import default_device, highest_precision
+from tensornetwork_tpu_torch.utils import tracing
 
 _PLAN_CACHE: "OrderedDict" = OrderedDict()
 _PLAN_CACHE_CAPACITY = 512  # plans pin device index maps; bound the cache
@@ -123,7 +124,8 @@ def _build_buckets(plan, pad_groups_to: int = 1):
     ONE batched matmul instead of one underfilled GEMM per charge sector.
     Each bucket holds padded (G, R, K), (G, K, C) and (G, R, C) index maps
     into the operands (padding: the zero slot at ``nnz``) and the output
-    (padding: the dummy slot at ``nnz_out``).  ``pad_groups_to``: G is
+    (padding: the dummy slot at ``nnz_out``), and the true flops of each
+    real group (``flops``).  ``pad_groups_to``: G is
     rounded up to a multiple of it with all-padding groups (the EP
     executor splits every bucket in equal rank slices)."""
     groups = {}
@@ -143,7 +145,9 @@ def _build_buckets(plan, pad_groups_to: int = 1):
             if mo is not None:
                 MO[g, : s1[0], : s2[1]] = mo
         buckets.append(dict(R=R, K=K, C=C, G=G, M1=M1, M2=M2,
-                            MO=None if plan["scalar"] else MO))
+                            MO=None if plan["scalar"] else MO,
+                            flops=[2 * s1[0] * s1[1] * s2[1]
+                                   for (_, _, _, s1, s2) in secs]))
     return buckets
 
 
@@ -155,6 +159,25 @@ def plan_flops(plan) -> Tuple[int, int]:
     padded = sum(2 * b["G"] * b["R"] * b["K"] * b["C"]
                  for b in plan["buckets"])
     return true, padded
+
+
+def _plan_work(plan) -> Tuple[int, int, int]:
+    """(true flops, padded flops, bucket GEMMs) of one instance's run of
+    a plan's executor: :func:`plan_flops`, of this rank's share for a
+    sector-sharded plan."""
+    true, padded = plan_flops(plan)
+    if plan["ep"] is not None:
+        true = sum(sum(b["flops"]) for b in plan["buckets"])
+    return true, padded, len(plan["buckets"])
+
+
+def _count_work(B: int, work: Tuple[int, int, int]) -> None:
+    """An executor run's work on ``B`` instances, in the tracing
+    counters."""
+    true, padded, gemms = work
+    tracing.add("bs_true_flops", B * true)
+    tracing.add("bs_padded_flops", B * padded)
+    tracing.add("bs_gemms", gemms)
 
 
 class DeviceMaps:
@@ -245,12 +268,14 @@ def _new_plan(t1, t2, axes1, axes2, precision, ep):
             if g:
                 plan["buckets"].append(dict(
                     b, G=g, M1=b["M1"][sl], M2=b["M2"][sl],
-                    MO=None if b["MO"] is None else b["MO"][sl]))
+                    MO=None if b["MO"] is None else b["MO"][sl],
+                    flops=b["flops"][sl]))
     # the per-sector maps live on in the buckets; keep the shapes only
     plan["sectors"] = [(None, None, None, s1, s2)
                        for (_, _, _, s1, s2) in plan["sectors"]]
     plan["precision"] = precision
     plan["ep"] = ep
+    plan["work"] = _plan_work(plan)
     maps = plan["maps"] = DeviceMaps()
     plan["perm_slots"] = [maps.add(plan["perm1"]), maps.add(plan["perm2"])]
     for b in plan["buckets"]:
@@ -320,6 +345,7 @@ def plan_from_record(meta: dict, arrays: Sequence[np.ndarray]):
                 nnz2=meta["nnz2"], buckets=buckets,
                 precision=meta["precision"], ep=None, maps=maps,
                 perm_slots=list(slots))
+    plan["work"] = _plan_work(plan)
     plan["run"] = _make_executor(plan)
     return plan
 
@@ -329,9 +355,11 @@ def _make_executor(plan):
     shapes ``(..., nnz1)`` and ``(..., nnz2)`` (leading axes broadcast) to
     ``(..., nnz_out)``, or ``(...)`` for a full contraction."""
 
+    @tracing.spanned("bs_exec")
     def run(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
         lead = torch.broadcast_shapes(d1.shape[:-1], d2.shape[:-1])
         B = int(np.prod(lead, dtype=np.int64))
+        _count_work(B, plan["work"])
         dtype = torch.promote_types(d1.dtype, d2.dtype)
         dev = d1.device
         on = plan["maps"].on(dev)
@@ -567,6 +595,7 @@ def make_chain_executor(specs, ndev: int, group,
     assign, _bins = _partition_chain(raws, ndev)
     maps = DeviceMaps()
     stages = []
+    true = 0
     for k, raw in enumerate(raws):
         buckets = [dict(G=b["G"], R=b["R"], K=b["K"], C=b["C"],
                         slots=[maps.add(b[n][rank].reshape(-1))
@@ -576,13 +605,21 @@ def make_chain_executor(specs, ndev: int, group,
                            nnz2=raw["nnz2"], out_nnz=raw["out"]["nnz"],
                            perms=[maps.add(raw["perm1"]),
                                   maps.add(raw["perm2"])]))
+        true += sum(2 * s1[0] * s1[1] * s2[1] for t, (*_, s1, s2)
+                    in enumerate(raw["sectors"]) if assign[k][t] == rank)
+    # this rank's work a run: its sectors' flops, its padded bucket GEMMs
+    buckets = [b for st in stages for b in st["buckets"]]
+    work = (true, sum(2 * b["G"] * b["R"] * b["K"] * b["C"] for b in buckets),
+            len(buckets))
 
+    @tracing.spanned("bs_exec")
     def run(*data):
         if len(data) != len(raws) + 1:
             raise TypeError(
                 f"chain executor takes {len(raws) + 1} data vectors")
         lead = torch.broadcast_shapes(*(d.shape[:-1] for d in data))
         B = int(np.prod(lead, dtype=np.int64))
+        _count_work(B, work)
         dtype = data[0].dtype
         for d in data[1:]:
             dtype = torch.promote_types(dtype, d.dtype)

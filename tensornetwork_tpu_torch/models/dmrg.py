@@ -34,6 +34,7 @@ from tensornetwork_tpu_torch.config import (DEFAULT_DTYPE, Device, as_tensor,
                                             default_device, highest_precision)
 from tensornetwork_tpu_torch.models.mpo import MPO
 from tensornetwork_tpu_torch.ops import decompositions, kernels, krylov
+from tensornetwork_tpu_torch.utils import tracing
 
 # Single-instance defaults, the JAX package's off-TPU ones; the local
 # solve defaults to the fused kernel, as the JAX package does on its
@@ -149,6 +150,7 @@ _FUSED_TIERS_2S = {
 }
 
 
+@tracing.spanned("local_solve")
 def _local_solve_1s(Lenv, W, Renv, A, num_krylov_vecs: int, ritz_impl: str,
                     reorth: bool, lanczos_impl: str):
     """Smallest Ritz pair of every instance's H_eff.  ``"fused"`` is the
@@ -159,11 +161,13 @@ def _local_solve_1s(Lenv, W, Renv, A, num_krylov_vecs: int, ritz_impl: str,
     if lanczos_impl == "fused":
         _, chi, d, _ = A.shape
         tier = kernels.one_site_tier(chi, d, W.shape[-4], num_krylov_vecs)
+        tracing.add("solve_tier." + tier)
         return _FUSED_TIERS[tier](Lenv, W, Renv, A,
                                   num_krylov_vecs=num_krylov_vecs,
                                   ritz_method=ritz_impl)
     if lanczos_impl != "plain":
         raise ValueError(f"unknown lanczos_impl {lanczos_impl!r}")
+    tracing.add("solve_tier.plain")
     Lt, W, Rt, _ = kernels.prepare_operands(Lenv, W.contiguous(), Renv, A)
 
     def mv(x):
@@ -176,6 +180,7 @@ def _local_solve_1s(Lenv, W, Renv, A, num_krylov_vecs: int, ritz_impl: str,
     return evals[:, 0], evecs[:, 0]
 
 
+@tracing.spanned("local_solve")
 def _local_solve_2s(Lenv, W1, W2, Renv, theta, num_krylov_vecs: int,
                     ritz_impl: str, reorth: bool, lanczos_impl: str):
     """Smallest Ritz pair of every instance's two-site H_eff, theta (B,
@@ -186,11 +191,13 @@ def _local_solve_2s(Lenv, W1, W2, Renv, theta, num_krylov_vecs: int,
     if lanczos_impl == "fused":
         _, chi, d, _, _ = theta.shape
         tier = kernels.two_site_tier(chi, d, W1.shape[-4], num_krylov_vecs)
+        tracing.add("solve_tier." + tier)
         return _FUSED_TIERS_2S[tier](Lenv, W1, W2, Renv, theta,
                                      num_krylov_vecs=num_krylov_vecs,
                                      ritz_method=ritz_impl)
     if lanczos_impl != "plain":
         raise ValueError(f"unknown lanczos_impl {lanczos_impl!r}")
+    tracing.add("solve_tier.plain")
     B, chi, d, _, _ = theta.shape
     Lt, C, Rt, _ = kernels.prepare_operands_2s(Lenv, W1, W2, Renv, theta)
 
@@ -216,6 +223,7 @@ def _fused_epilogue(W, A, qr_impl: str, epilogue_impl: str) -> bool:
             and kernels.gauge_epilogue_admitted(chi, d, W.shape[-4]))
 
 
+@tracing.spanned("gauge_env")
 def _gauge_env_left(Lenv, W, A, qr_impl: str, epilogue_impl: str):
     """Gauge-shift right (A = Q.Rm) and grow the left env with Q."""
     if _fused_epilogue(W, A, qr_impl, epilogue_impl):
@@ -225,6 +233,7 @@ def _gauge_env_left(Lenv, W, A, qr_impl: str, epilogue_impl: str):
     return Q, Rm, _update_left(Lenv, Q, W)
 
 
+@tracing.spanned("gauge_env")
 def _gauge_env_right(Renv, W, A, qr_impl: str, epilogue_impl: str):
     """Gauge-shift left (A = Lm.Q) and grow the right env with Q."""
     if _fused_epilogue(W, A, qr_impl, epilogue_impl):
@@ -240,6 +249,7 @@ def _site(Ws, i: int):
     return Ws[i] if Ws.dim() == 5 else Ws[:, i]
 
 
+@tracing.spanned("canon")
 def _right_canonicalize_and_envs(As, Ws, vR, R0, qr_impl: str,
                                  epilogue_impl: str = "xla"):
     B, N, chi, d, _ = As.shape
@@ -281,6 +291,7 @@ class SweepResult(NamedTuple):
     # passing them as ``renvs=`` to the next sweep skips the prepass
 
 
+@tracing.spanned("sweep")
 def _one_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
                          boundary_envs, qr_impl: str, ritz_impl: str,
                          reorth: bool, lanczos_impl: str,
@@ -382,6 +393,7 @@ def _truncate(th, q0, chi: int, trunc_impl: str, trunc_iters: int,
     return res.u, s[:, :, None] * res.vh, res.trunc_sq_norm
 
 
+@tracing.spanned("sweep")
 def _two_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
                          boundary_envs, qr_impl: str, ritz_impl: str,
                          reorth: bool, lanczos_impl: str, trunc_impl: str,
@@ -421,11 +433,12 @@ def _two_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
         theta = _normalize(torch.einsum("Basb,Bbtc->Bastc", pending,
                                         As[:, i + 1]))
         _, th = solve(Lenv, W1, W2, step_renvs[:, i], theta)
-        U, SV, tsq = trunc(th.reshape(B, chi * d, d * chi),
-                           pending.reshape(B, chi * d, chi))
         Lenvs[i] = Lenv
-        As1[i] = U.reshape(B, chi, d, chi)
-        Lenv = _update_left(Lenv, As1[i], W1)
+        with tracing.span("gauge_env"):
+            U, SV, tsq = trunc(th.reshape(B, chi * d, d * chi),
+                               pending.reshape(B, chi * d, chi))
+            As1[i] = U.reshape(B, chi, d, chi)
+            Lenv = _update_left(Lenv, As1[i], W1)
         pending = SV.reshape(B, chi, d, chi)
         terr = terr + tsq
     As1[N - 1] = pending
@@ -438,12 +451,13 @@ def _two_site_sweep_impl(As, Ws, vL, vR, num_krylov_vecs: int,
         theta = _normalize(torch.einsum("Basb,Bbtc->Bastc", As1[i],
                                         pending))
         Es[i], th = solve(Lenvs[i], W1, W2, Renv, theta)
-        # truncate th^T = q @ rest, so th = rest^T @ q^T = US @ V
-        q, rest, tsq = trunc(th.reshape(B, chi * d, d * chi).mT,
-                             pending.reshape(B, chi, d * chi).mT)
         Renvs_out[i] = Renv
-        As2[i + 1] = q.mT.reshape(B, chi, d, chi)
-        Renv = _update_right(Renv, As2[i + 1], W2)
+        with tracing.span("gauge_env"):
+            # truncate th^T = q @ rest, so th = rest^T @ q^T = US @ V
+            q, rest, tsq = trunc(th.reshape(B, chi * d, d * chi).mT,
+                                 pending.reshape(B, chi, d * chi).mT)
+            As2[i + 1] = q.mT.reshape(B, chi, d, chi)
+            Renv = _update_right(Renv, As2[i + 1], W2)
         pending = rest.mT.reshape(B, chi, d, chi)
         terr = terr + tsq
     As2[0] = pending

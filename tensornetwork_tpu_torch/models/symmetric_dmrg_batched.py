@@ -69,6 +69,7 @@ from tensornetwork_tpu_torch.config import as_tensor, highest_precision
 from tensornetwork_tpu_torch.ops import krylov
 from tensornetwork_tpu_torch.parallel import collectives
 from tensornetwork_tpu_torch.parallel.mesh import axis_group, axis_size
+from tensornetwork_tpu_torch.utils import tracing
 
 def _skel(indices, dtype) -> BlockSparseTensor:
     return TE.skeleton(*_expand_indices(indices), dtype)
@@ -224,17 +225,19 @@ class _SiteProgram:
         if self.cap is not None:
             dL, dR = self.cap.gather(dL, dR)
         with highest_precision():
-            evals, evecs = krylov.eigsh_lanczos(
-                lambda x: self.mv(dL, x, dW, dR), dA,
-                num_krylov_vecs=self.m, numeig=1, ritz_method=self.ritz,
-                reorthogonalize=self.reorth)
-            qd, pd = self.shift(evecs[:, 0])
-            if self.direction == "right":
-                nxt = self.absorb(pd, dA_next)
-            else:
-                nxt = self.absorb(dA_next, pd)
-            denv = _grow(self.grow, self.direction, qd, dW,
-                         dL if self.direction == "right" else dR)
+            with tracing.span("local_solve"):
+                evals, evecs = krylov.eigsh_lanczos(
+                    lambda x: self.mv(dL, x, dW, dR), dA,
+                    num_krylov_vecs=self.m, numeig=1, ritz_method=self.ritz,
+                    reorthogonalize=self.reorth)
+            with tracing.span("gauge_env"):
+                qd, pd = self.shift(evecs[:, 0])
+                if self.direction == "right":
+                    nxt = self.absorb(pd, dA_next)
+                else:
+                    nxt = self.absorb(dA_next, pd)
+                denv = _grow(self.grow, self.direction, qd, dW,
+                             dL if self.direction == "right" else dR)
         if self.cap is not None:
             denv = self.cap.scatter(denv)
         return evals[:, 0], qd, _normalized(nxt), denv
@@ -264,7 +267,7 @@ class _CanonProgram:
     def __call__(self, dA, dA_prev, dW, dR):
         if self.cap is not None:
             dR, = self.cap.gather(dR)
-        with highest_precision():
+        with highest_precision(), tracing.span("gauge_env"):
             qd, pd = self.shift(dA)
             prev2 = _normalized(self.absorb(dA_prev, pd))
             denv = _grow(self.grow, "left", qd, dW, dR)
@@ -309,17 +312,19 @@ class _BondProgram:
         if self.cap is not None:
             dL, dR = self.cap.gather(dL, dR)
         with highest_precision():
-            evals, evecs = krylov.eigsh_lanczos(
-                lambda x: self.mv(dL, x, dW1, dW2, dR),
-                self.theta(dA, dB), num_krylov_vecs=self.m, numeig=1,
-                ritz_method=self.ritz, reorthogonalize=self.reorth)
+            with tracing.span("local_solve"):
+                evals, evecs = krylov.eigsh_lanczos(
+                    lambda x: self.mv(dL, x, dW1, dW2, dR),
+                    self.theta(dA, dB), num_krylov_vecs=self.m, numeig=1,
+                    ritz_method=self.ritz, reorthogonalize=self.reorth)
             absorb = "right" if self.direction == "right" else "left"
-            # EP: the sector SVDs dealt over the ranks
-            ld, rd, terr = self.split(evecs[:, 0], absorb, ep=self.ep)
-            if self.direction == "right":
-                denv = _grow(self.grow, "right", ld, dW1, dL)
-            else:
-                denv = _grow(self.grow, "left", rd, dW2, dR)
+            with tracing.span("gauge_env"):
+                # EP: the sector SVDs dealt over the ranks
+                ld, rd, terr = self.split(evecs[:, 0], absorb, ep=self.ep)
+                if self.direction == "right":
+                    denv = _grow(self.grow, "right", ld, dW1, dL)
+                else:
+                    denv = _grow(self.grow, "left", rd, dW2, dR)
         if self.cap is not None:
             denv = self.cap.scatter(denv)
         return evals[:, 0], ld, rd, terr, denv
@@ -717,20 +722,23 @@ class BatchedSymmetricDMRG:
             e = env_to_stored(e, ndev)[:, collectives.group_rank(group)]
         return e
 
+    @tracing.spanned("canon")
     def right_canonicalize(self) -> List[torch.Tensor]:
         """Left shifts from the right end (the prepass of every run);
         returns the right environments, index N the boundary."""
         Rdata: List[Optional[torch.Tensor]] = [None] * (self.N + 1)
         Rdata[self.N] = self._boundary_env()
         for site in range(self.N - 1, 0, -1):
-            qd, prev2, rnew = self._canon_program(site)(
-                self.data[site], self.data[site - 1], self.mpo_data[site],
-                Rdata[site + 1])
+            with tracing.span("program_lookup"):
+                prog = self._canon_program(site)
+            qd, prev2, rnew = prog(self.data[site], self.data[site - 1],
+                                   self.mpo_data[site], Rdata[site + 1])
             self.data[site] = qd
             self.data[site - 1] = prev2
             Rdata[site] = rnew
         return Rdata
 
+    @tracing.spanned("sweep")
     def sweep_one_site(self, Rdata: List[torch.Tensor]) -> torch.Tensor:
         """One left-to-right-to-left one-site sweep from the right envs
         ``Rdata`` (updated in place, as the data); returns the (B,)
@@ -739,14 +747,18 @@ class BatchedSymmetricDMRG:
         Ldata[0] = self._boundary_env()
         es = None
         for site in range(self.N - 1):
-            es, qd, nxt, lnew = self._program(site, "right")(
+            with tracing.span("program_lookup"):
+                prog = self._program(site, "right")
+            es, qd, nxt, lnew = prog(
                 self.data[site], self.data[site + 1], self.mpo_data[site],
                 Ldata[site], Rdata[site + 1])
             self.data[site] = qd
             self.data[site + 1] = nxt
             Ldata[site + 1] = lnew
         for site in range(self.N - 1, 0, -1):
-            es, qd, prv, rnew = self._program(site, "left")(
+            with tracing.span("program_lookup"):
+                prog = self._program(site, "left")
+            es, qd, prv, rnew = prog(
                 self.data[site], self.data[site - 1], self.mpo_data[site],
                 Ldata[site], Rdata[site + 1])
             self.data[site] = qd
@@ -754,6 +766,7 @@ class BatchedSymmetricDMRG:
             Rdata[site] = rnew
         return es
 
+    @tracing.spanned("sweep")
     def sweep_two_site(self, Rdata: List[torch.Tensor]
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One two-site sweep from the right envs ``Rdata`` (updated in
@@ -765,7 +778,9 @@ class BatchedSymmetricDMRG:
         Ldata[0] = self._boundary_env()
         es = None
         for bond in range(self.N - 1):
-            es, ld, rd, terr, lnew = self._bond_program(bond, "right")(
+            with tracing.span("program_lookup"):
+                prog = self._bond_program(bond, "right")
+            es, ld, rd, terr, lnew = prog(
                 self.data[bond], self.data[bond + 1], self.mpo_data[bond],
                 self.mpo_data[bond + 1], Ldata[bond], Rdata[bond + 2])
             self.data[bond] = ld
@@ -773,7 +788,9 @@ class BatchedSymmetricDMRG:
             Ldata[bond + 1] = lnew
             terr_total = terr_total + terr
         for bond in range(self.N - 2, -1, -1):
-            es, ld, rd, terr, rnew = self._bond_program(bond, "left")(
+            with tracing.span("program_lookup"):
+                prog = self._bond_program(bond, "left")
+            es, ld, rd, terr, rnew = prog(
                 self.data[bond], self.data[bond + 1], self.mpo_data[bond],
                 self.mpo_data[bond + 1], Ldata[bond], Rdata[bond + 2])
             self.data[bond] = ld

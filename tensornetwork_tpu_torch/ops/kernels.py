@@ -91,6 +91,7 @@ import torch
 
 from tensornetwork_tpu_torch.config import highest_precision
 from tensornetwork_tpu_torch.ops import _build, krylov
+from tensornetwork_tpu_torch.utils import tracing
 
 LARGE = krylov.LARGE
 
@@ -1126,14 +1127,18 @@ def fused_lanczos_ground_state(L, W, R, x0, num_krylov_vecs: int,
     (B,), evecs (B, a, t, b))``, the smallest Ritz pair per instance, as
     ``krylov.eigsh_lanczos(..., numeig=1, reorthogonalize=False)``."""
     m = num_krylov_vecs
-    Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
+    with tracing.span("lanczos"):
+        Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
+        if two_pass:
+            ab = fused_lanczos_fact(Lt, W, Rt, xt, m, delta)
+        else:
+            V, ab = fused_lanczos(Lt, W, Rt, xt, m, delta)
     if not two_pass:
-        V, ab = fused_lanczos(Lt, W, Rt, xt, m, delta)
         return _ritz_pair(V, ab, ritz_method, power_iters, delta)
-    ab = fused_lanczos_fact(Lt, W, Rt, xt, m, delta)
     evals, weights = krylov.tridiag_ritz(ab[:, 0, :], ab[:, 1, :m - 1],
                                          ritz_method, power_iters)
-    y = fused_lanczos_replay(Lt, W, Rt, xt, weights, ab, delta)
+    with tracing.span("lanczos"):
+        y = fused_lanczos_replay(Lt, W, Rt, xt, weights, ab, delta)
     return evals, _normalized(y, delta)
 
 
@@ -1144,15 +1149,9 @@ def fused_lanczos_ground_state_streamed(L, W, R, x0, num_krylov_vecs: int,
     """:func:`fused_lanczos_ground_state` through
     :func:`fused_lanczos_streamed` (same operands and returns).  The JAX
     package's ``n_chunks`` has no meaning on the card and is not taken."""
-    Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
-    V, ab = fused_lanczos_streamed(Lt, W, Rt, xt, num_krylov_vecs, delta)
-    return _ritz_pair(V, ab, ritz_method, power_iters, delta)
-
-
-def _streamed_recurrence(Lt, C, Rt, xt, m, ritz_method, power_iters, delta,
-                         xl: bool):
-    matvec = streamed_matvec_xl if xl else streamed_matvec
-    V, ab = streamed_lanczos(Lt, C, Rt, xt, m, delta, matvec)
+    with tracing.span("lanczos"):
+        Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
+        V, ab = fused_lanczos_streamed(Lt, W, Rt, xt, num_krylov_vecs, delta)
     return _ritz_pair(V, ab, ritz_method, power_iters, delta)
 
 
@@ -1166,9 +1165,12 @@ def fused_lanczos_ground_state_streamed2(L, W, R, x0, num_krylov_vecs: int,
     chi=1024 tier on :func:`streamed_matvec`, or with ``xl`` the chi=2048
     tier on :func:`streamed_matvec_xl`.  The JAX package's ``plan`` (its
     VMEM chunking) has no meaning on the card and is not taken."""
-    Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
-    return _streamed_recurrence(Lt, W, Rt, xt, num_krylov_vecs, ritz_method,
-                                power_iters, delta, xl)
+    with tracing.span("lanczos"):
+        Lt, W, Rt, xt = prepare_operands(L, W.contiguous(), R, x0)
+        V, ab = streamed_lanczos(
+            Lt, W, Rt, xt, num_krylov_vecs, delta,
+            streamed_matvec_xl if xl else streamed_matvec)
+    return _ritz_pair(V, ab, ritz_method, power_iters, delta)
 
 
 def fuse_mpo_pair(W1, W2):
@@ -1202,8 +1204,9 @@ def fused_lanczos_ground_state_2s(L, W1, W2, R, x0, num_krylov_vecs: int,
     d), R (B, b, M, d), x0 (B, a, t, z, b).  Returns ``(evals (B,), evecs
     (B, a, t, z, b))``.  Counterpart of the JAX package's
     ``fused_lanczos_ground_state_2s``."""
-    Lt, C, Rt, xt = prepare_operands_2s(L, W1, W2, R, x0)
-    V, ab = fused_lanczos(Lt, C, Rt, xt, num_krylov_vecs, delta)
+    with tracing.span("lanczos"):
+        Lt, C, Rt, xt = prepare_operands_2s(L, W1, W2, R, x0)
+        V, ab = fused_lanczos(Lt, C, Rt, xt, num_krylov_vecs, delta)
     evals, y = _ritz_pair(V, ab, ritz_method, power_iters, delta)
     return evals, y.reshape(x0.shape)
 
@@ -1220,9 +1223,12 @@ def fused_lanczos_ground_state_2s_streamed(L, W1, W2, R, x0,
     chi=1024 tier).  Counterpart of the JAX package's
     ``fused_lanczos_ground_state_2s_streamed``; its ``plan`` has no
     meaning on the card."""
-    Lt, C, Rt, xt = prepare_operands_2s(L, W1, W2, R, x0)
-    evals, y = _streamed_recurrence(Lt, C, Rt, xt, num_krylov_vecs,
-                                    ritz_method, power_iters, delta, xl)
+    with tracing.span("lanczos"):
+        Lt, C, Rt, xt = prepare_operands_2s(L, W1, W2, R, x0)
+        V, ab = streamed_lanczos(
+            Lt, C, Rt, xt, num_krylov_vecs, delta,
+            streamed_matvec_xl if xl else streamed_matvec)
+    evals, y = _ritz_pair(V, ab, ritz_method, power_iters, delta)
     return evals, y.reshape(x0.shape)
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from tensornetwork_tpu_torch.ops.decompositions import lapack_factor
+from tensornetwork_tpu_torch.utils import tracing
 
 LARGE = 1e10  # diagonal sentinel of a dead Lanczos step
 
@@ -89,6 +90,7 @@ def _norm(v: torch.Tensor, reduce) -> torch.Tensor:
     return torch.sqrt(reduce((torch.conj(v) * v).real.sum(-1)))
 
 
+@tracing.spanned("lanczos")
 def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
              real_alpha, reduce=None):
     """``reduce``: None, or the sum over ranks of a per-rank partial, for
@@ -134,6 +136,7 @@ def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
     return V, alphas, betas
 
 
+@tracing.spanned("ritz")
 def tridiag_ritz(alphas: torch.Tensor, betas: torch.Tensor,
                  method: str = "eigh",
                  power_iters: int = 60) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -215,11 +218,12 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
             lam, w = tridiag_ritz(alphas, betas, "power", power_iters)
             evals, evecs = lam[:, None], w[:, :, None]
         else:
-            T = torch.diag_embed(alphas)
-            if betas.shape[-1]:
-                T = (T + torch.diag_embed(betas, 1)
-                     + torch.diag_embed(betas, -1))
-            evals, evecs = torch.linalg.eigh(T)
+            with tracing.span("ritz"):
+                T = torch.diag_embed(alphas)
+                if betas.shape[-1]:
+                    T = (T + torch.diag_embed(betas, 1)
+                         + torch.diag_embed(betas, -1))
+                evals, evecs = torch.linalg.eigh(T)
         vecs = torch.einsum("Bkn,Bke->Ben", V,
                             evecs[:, :, :numeig].to(V.dtype))
         norms = _norm(vecs.reshape(-1, n), reduce).reshape(
