@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch twin at the shapes its path gives it, and runs the paths of DMRG
+PyTorch twin at the shapes its path gives it (K10, the power Ritz step,
+at the two benchmark cells' batches beside one instance's chain), and
+runs the paths of DMRG
 on the transverse-field Ising chain, N=32, d=2, M=3, f32 -- one-site (m=10
 Krylov vectors) at chi=64 single instance and a batch of 256 (resident
 tier), each also with the fused gauge-and-environment epilogue; single
@@ -138,6 +140,11 @@ K5_PER_SWEEP = 2 * N
 # edge of the shapes the route rule admits (chi <= 347 at d=2, M=3), and at
 # B=1, chi=64, the single-instance fused path's shape.
 K5_SHAPES = ((BATCH, CHI), (1, 256), (1, CHI))
+# K10, the power Ritz step: (B, m) of the benchmark cells' solves (B=4096
+# TFI chains, B=32 XXZ realizations, m=10 Krylov vectors), f32; its
+# tolerances against the twin (lam relative, w absolute: both stall about
+# sqrt(eps) from the eigenvector, each at a point its rounding picks)
+RITZ_SHAPES, RITZ_TOL = ((4096, KRYLOV), (32, KRYLOV)), (2e-5, 2e-3)
 # The transfer chain (K6) at bench.py's shape: B=256, N=32, chi=128, bf16,
 # E0 = I, R=8 chained applications.
 CHAIN_B, CHAIN_CHI, CHAIN_R = 256, 128, 8
@@ -1075,6 +1082,74 @@ def k5_phase(torch):
     return ret
 
 
+def ritz_projections(torch, B, m, seed):
+    """ab (B, 2, m), f32, in the fused Lanczos's layout: m Lanczos steps in
+    f64 on random symmetric matrices with a gapped ground state, from a
+    start near the ground vector (as a DMRG solve gives them)."""
+    from tensornetwork_tpu_torch.ops import krylov
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    kw = dict(dtype=torch.float64, device=DEV)
+    n = 2 * m + 8
+    q, _ = torch.linalg.qr(torch.randn(B, n, n, generator=g, **kw))
+    spectrum = torch.cat([torch.full((B, 1), -1.5, **kw),
+                          2 * torch.rand(B, n - 1, generator=g, **kw) - 1], 1)
+    H = (q * spectrum[:, None, :]) @ q.transpose(1, 2)
+    v0 = q[:, :, 0] + 0.5 * torch.randn(B, n, generator=g, **kw) / n ** 0.5
+    _, al, be = krylov.lanczos_factorization(
+        lambda x: (H @ x[..., None])[..., 0], v0, m)
+    ab = torch.zeros((B, 2, m), dtype=torch.float32, device=DEV)
+    ab[:, 0] = al
+    ab[:, 1, :m - 1] = be
+    return ab
+
+
+def k10_phase(torch):
+    """K10, the power Ritz step, at the benchmark cells' shapes
+    (RITZ_SHAPES): against its twin on the same strided rows of ab (lam and
+    w within RITZ_TOL), a repeat launch bit for bit, one launch a call;
+    timed by CUDA events beside the twin and beside one instance alone
+    (B=1): that instance's dependent chain of 60 iterations is the bound
+    (no operation or byte count bounds it)."""
+    from tensornetwork_tpu_torch.ops import kernels as K
+    from tensornetwork_tpu_torch.ops import krylov
+    K.reset_launch_counts()
+    ab1 = ritz_projections(torch, 1, KRYLOV, seed=10)
+    chain_ms = cuda_ms(torch, lambda: K.tridiag_ritz_power(
+        ab1[:, 0], ab1[:, 1, :KRYLOV - 1]), 50, warmup=3)
+    cases, calls = [], 3 + 50
+    for B, m in RITZ_SHAPES:
+        ab = ritz_projections(torch, B, m, seed=B)
+        al, be = ab[:, 0], ab[:, 1, :m - 1]
+        lam, w = K.tridiag_ritz_power(al, be)
+        lam0, w0 = krylov.tridiag_ritz_power_plain(al, be)
+        lam2, w2 = K.tridiag_ritz_power(al, be)
+        torch.cuda.synchronize()
+        rel_lam = float(((lam - lam0).abs() / lam0.abs()).max())
+        err_w = float((w - w0).abs().max())
+        repeat = bool(torch.equal(lam, lam2) and torch.equal(w, w2))
+        ms = cuda_ms(torch, lambda: K.tridiag_ritz_power(al, be), 50,
+                     warmup=3)
+        plain_ms = cuda_ms(
+            torch, lambda: krylov.tridiag_ritz_power_plain(al, be), 3)
+        calls += 2 + 3 + 50
+        cases.append(dict(B=B, m=m, ms=ms, plain_ms=plain_ms,
+                          chain_ms=chain_ms, max_rel_err_lam=rel_lam,
+                          max_abs_err_w=err_w, repeat_same_bits=repeat))
+        check(rel_lam <= RITZ_TOL[0] and err_w <= RITZ_TOL[1],
+              f"K10 at B={B} m={m} disagrees with its twin: lam {rel_lam}, "
+              f"w {err_w}")
+        check(repeat, f"K10 at B={B}: a repeat launch gave other bits")
+    launches = K.launch_counts["tridiag_ritz"]
+    emit(phase="k10_tridiag_ritz", cases=cases, launches=launches,
+         bound_by="dependent chain of 60 iterations (B=1)")
+    check(launches == calls, f"K10: {launches} launches for {calls} calls")
+    head = cases[0]
+    return dict(max_abs_err=head["max_abs_err_w"], ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=chain_ms,
+                bound_by="dependent chain", library_ms=None,
+                b32_ms=cases[1]["ms"], b32_plain_ms=cases[1]["plain_ms"])
+
+
 def chain_work(B, N, chi, d, elem):
     """(flops, bytes) of one transfer chain: 4 d chi^3 per site and
     instance; the site tensors (elem bytes) and E0 read once (in the input
@@ -1358,7 +1433,7 @@ def batched_phase(torch, epilogue_impl="xla"):
     mpo64 = FiniteTFI(1.0, 1.0, N=N, dtype=torch.float64)
     As = random_mps_stack(1, BATCH * N, CHI, D, dtype=torch.float32).reshape(
         BATCH, N, CHI, D, CHI)
-    renvs, times, per_sweep, k5_per_sweep = None, [], [], []
+    renvs, times, per_sweep, k5_per_sweep, k10_per_sweep = None, [], [], [], []
     for _ in range(BATCH_SWEEPS):
         before = dict(K.launch_counts)
         torch.cuda.synchronize()
@@ -1372,6 +1447,8 @@ def batched_phase(torch, epilogue_impl="xla"):
                          - before["fused_lanczos"])
         k5_per_sweep.append(K.launch_counts["fused_gauge_env"]
                             - before["fused_gauge_env"])
+        k10_per_sweep.append(K.launch_counts["tridiag_ritz"]
+                             - before["tridiag_ritz"])
         As, renvs = res.As, res.renvs
     check(bool(torch.isfinite(As).all()) and res.energies.shape == (BATCH, N),
           "batched state not finite or misshapen")
@@ -1381,6 +1458,9 @@ def batched_phase(torch, epilogue_impl="xla"):
                if epilogue_impl == "fused" else [0] * BATCH_SWEEPS)
     check(k5_per_sweep == k5_want,
           f"K5 launches per batched sweep {k5_per_sweep}, expected {k5_want}")
+    check(all(c == 2 * N for c in k10_per_sweep),
+          f"K10 launches per batched sweep {k10_per_sweep}, expected {2 * N}"
+          " (one power Ritz step a solve)")
     ritz = energy.astype(np.float64) - REFERENCE_ENERGY
     de = np.array([state_delta_e(torch, a, mpo64) for a in As])
     sweep_s = statistics.median(times[1:])
@@ -1392,7 +1472,8 @@ def batched_phase(torch, epilogue_impl="xla"):
          ritz_delta_E_median=float(np.median(ritz)),
          ritz_delta_E_min=float(ritz.min()), ritz_delta_E_max=float(ritz.max()),
          instance_sweeps_per_s=BATCH / sweep_s, sweep_s=times,
-         k2_launches_per_sweep=per_sweep, k5_launches_per_sweep=k5_per_sweep)
+         k2_launches_per_sweep=per_sweep, k5_launches_per_sweep=k5_per_sweep,
+         k10_launches_per_sweep=k10_per_sweep)
     check(bool(np.all((de >= DE_LO) & (de <= DE_HI))),
           f"batched ({epilogue_impl} epilogue) delta E in [{de.min()}, "
           f"{de.max()}], outside window")
@@ -3955,7 +4036,9 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("transfer_chain", "transfer_chain.cu", _KP + "1081"),
     ("streamed_matvec", "streamed_matvec.cu", _KP + "1257"),
     ("streamed_matvec_xl", "streamed_matvec_xl.cu", _KP + "1380"),
-    ("gemm_chain", "gemm_chain.cu", "benchmarks/mxu_micro.py:30"))
+    ("gemm_chain", "gemm_chain.cu", "benchmarks/mxu_micro.py:30"),
+    ("tridiag_ritz", "tridiag_ritz.cu",
+     "none: port-only (the JAX package's lax.scan, ops/krylov.py:100)"))
 
 
 def main():
@@ -3972,6 +4055,7 @@ def main():
     meas["streamed_matvec_xl"], k8_ms = k8_phase(torch)
     k2_nt4_ms = k2_nt4_phase(torch)
     meas["fused_gauge_env"] = k5_phase(torch)
+    meas["tridiag_ritz"] = k10_phase(torch)
     k2_ms, k5_ms = meas["fused_lanczos"]["ms"], meas["fused_gauge_env"]["ms"]
 
     # the chi=64 path: every count at 0 just before, read just after
@@ -4002,6 +4086,7 @@ def main():
     check_k5_resident(counts, routes)
     launches["fused_gauge_env"] += counts["fused_gauge_env"]
     launches["fused_lanczos"] += counts["fused_lanczos"]
+    launches["tridiag_ritz"] += counts["tridiag_ritz"]
     states["fused"] = (As, renvs)
     # the two epilogues in turns, then each one's device time: the traced
     # sweeps come last, so that no timed sweep runs after a trace
@@ -4026,6 +4111,7 @@ def main():
     emit(phase="two_site_batched_launches", chi=CHI, **counts)
     check(counts["fused_lanczos"] > 0, f"K2 never launched: {counts}")
     launches["fused_lanczos"] += counts["fused_lanczos"]
+    launches["tridiag_ritz"] += counts["tridiag_ritz"]
 
     # TDVP: K2 at its shapes, then its paths, each with its own counts
     k2_tdvp_phase(torch)
@@ -4093,6 +4179,7 @@ def main():
     torch.cuda.empty_cache()
 
     # block-sparse U(1) DMRG, ncon and split_node: no kernel on this path
+    # but K10, the batched symmetric sweeps' power Ritz step
     K.reset_launch_counts()
     bs_out = {}
     for bs_path in (bs_engine_phase, sym_dmrg_batched_phase,
@@ -4103,8 +4190,11 @@ def main():
              seconds=time.perf_counter() - t0)
     counts = dict(K.launch_counts)
     emit(phase="block_sparse_launches", **counts)
+    k10 = counts.pop("tridiag_ritz")
+    check(k10 > 0, "K10 never launched on the batched symmetric sweeps")
     check(not any(counts.values()),
           f"a kernel launched on the block-sparse path: {counts}")
+    launches["tridiag_ritz"] += k10
     first_energies, plan_build_s = bs_out[sym_dmrg_batched_phase]
     t0 = time.perf_counter()
     cold_start_phase(torch, first_energies, plan_build_s)
@@ -4120,6 +4210,7 @@ def main():
     launches["fused_lanczos"] += (md_launches["dp"]["fused_lanczos"]
                                   + md_launches["sp"]["fused_lanczos"])
     launches["fused_gauge_env"] += md_launches["dp"]["fused_gauge_env"]
+    launches["tridiag_ritz"] += md_launches["dp"].get("tridiag_ritz", 0)
 
     # the large-chi paths, each with its own counts
     solve_ms = {"two_pass": meas["fused_lanczos_2pass"]["ms"],
@@ -4158,7 +4249,8 @@ def main():
     check(not any(counts.values()),
           f"a kernel launched on the application layer: {counts}")
 
-    # the examples: K2 in dmrg_tfi (2N a sweep), no other kernel
+    # the examples: K2 in dmrg_tfi (2N a sweep), K10 in the power-Ritz
+    # solves, no other kernel
     K.reset_launch_counts()
     t0 = time.perf_counter()
     examples_phase(torch)
@@ -4166,6 +4258,7 @@ def main():
     emit(phase="examples_launches", seconds=time.perf_counter() - t0,
          **counts)
     k2 = counts.pop("fused_lanczos")
+    launches["tridiag_ritz"] += counts.pop("tridiag_ritz")
     check(k2 > 0 and k2 % (2 * N) == 0 and k2 <= 2 * N * 6
           and not any(counts.values()),
           f"examples: K2 launched {k2} times, expected 2N a sweep of "

@@ -24,7 +24,7 @@ BUILD_ROOT = _PKG / "build"
 SOURCES = ("heff_matvec.cu", "fused_lanczos.cu", "fused_lanczos_2pass.cu",
            "fused_lanczos_streamed.cu", "streamed_matvec.cu",
            "streamed_matvec_xl.cu", "fused_gauge_env.cu", "transfer_chain.cu",
-           "gemm_chain.cu")
+           "gemm_chain.cu", "tridiag_ritz.cu")
 HEADERS = ("heff.cuh", "lanczos_grid.cuh", "gemm_tc32.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

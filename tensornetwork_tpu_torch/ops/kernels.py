@@ -54,6 +54,13 @@ Two-site, the resident tier is :func:`fused_lanczos` at nt = d*d
 and on complex ones through the realified operands, M and nt doubled
 (:func:`realify_sandwich_operands`, :func:`expm_multiply_fused_sc`).
 
+The Ritz step of every power-Ritz solve, in each tier and in the plain
+Lanczos, is :func:`tridiag_ritz_power` (K10, ``csrc/tridiag_ritz.cu``):
+the 60 steepest-descent iterations of every instance's tridiagonal
+projection in one launch, one warp an instance.  It replaces no TPU
+kernel (the JAX package leaves that loop to XLA); it replaces the ~2,500
+eager operations a solve of the loop on (B, m) tensors.
+
 Beside the local solve:
 
 * :func:`fused_gauge_env_left` / :func:`fused_gauge_env_right` -- the
@@ -100,7 +107,7 @@ launch_counts: Dict[str, int] = {
     "heff_matvec": 0, "fused_lanczos": 0, "fused_lanczos_fact": 0,
     "fused_lanczos_replay": 0, "fused_lanczos_streamed": 0,
     "streamed_matvec": 0, "streamed_matvec_xl": 0, "fused_gauge_env": 0,
-    "transfer_chain": 0, "gemm_chain": 0}
+    "transfer_chain": 0, "gemm_chain": 0, "tridiag_ritz": 0}
 # the route of each kernel launch of transfer_chain (transfer_chain_route),
 # fused_gauge_env (gauge_env_route), gemm_chain (gemm_chain_route) and
 # heff_matvec (heff_matvec_route), and the instance of each launch of
@@ -145,6 +152,7 @@ _ARGTYPES = {
     "tn_fused_gauge_env": [_P] * 11 + [_I] * 7 + [_P, _P],
     "tn_transfer_chain": [_P] * 6 + [_I] * 5 + [_P],
     "tn_gemm_chain": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "tn_tridiag_ritz": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _P],
 }
 _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
             "tn_fused_lanczos": "fused_lanczos.cu",
@@ -155,7 +163,8 @@ _SOURCES = {"tn_heff_matvec": "heff_matvec.cu",
             "tn_streamed_matvec_xl": "streamed_matvec_xl.cu",
             "tn_fused_gauge_env": "fused_gauge_env.cu",
             "tn_transfer_chain": "transfer_chain.cu",
-            "tn_gemm_chain": "gemm_chain.cu"}
+            "tn_gemm_chain": "gemm_chain.cu",
+            "tn_tridiag_ritz": "tridiag_ritz.cu"}
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
            torch.bfloat16: "_bf16"}
 # the input types each C entry point has an instance for
@@ -1230,6 +1239,58 @@ def fused_lanczos_ground_state_2s_streamed(L, W1, W2, R, x0,
             streamed_matvec_xl if xl else streamed_matvec)
     evals, y = _ritz_pair(V, ab, ritz_method, power_iters, delta)
     return evals, y.reshape(x0.shape)
+
+
+# ---------------------------------------------------------------------------
+# K10: the power Ritz step of the tridiagonal projections, one launch
+# ---------------------------------------------------------------------------
+
+_RITZ_MAX_M = 64  # one warp an instance, two entries a lane
+
+
+def _ritz_rows(t, B: int, n: int):
+    """``t`` as (B, n) rows with unit stride along a row (copied only
+    where it has none), and the row stride in elements."""
+    t = t.reshape(B, n)
+    if n > 1 and t.stride(1) != 1:
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+def tridiag_ritz_power(alphas, betas, power_iters: int = 60):
+    """K10: ``krylov.tridiag_ritz(alphas, betas, "power", power_iters)``
+    in one launch, all iterations of every instance.  ``alphas`` (..., m),
+    ``betas`` (..., m-1), real f32 or f64 on one CUDA device, m <= 64; any
+    leading shape (flattened), strided rows taken as they are.  Returns
+    ``(lam (...,), w (..., m))``.  CPU tensors run the twin,
+    :func:`krylov.tridiag_ritz_power_plain`."""
+    if alphas.device.type == "cpu" and betas.device.type == "cpu":
+        return krylov.tridiag_ritz_power_plain(alphas, betas, power_iters)
+    if alphas.device != betas.device or alphas.device.type != "cuda":
+        raise ValueError(f"tridiag_ritz_power: alphas on {alphas.device}, "
+                         f"betas on {betas.device}; both on one CUDA device")
+    dtype = alphas.dtype
+    if dtype not in _TYPES["tn_tridiag_ritz"] or betas.dtype != dtype:
+        raise TypeError(f"tridiag_ritz_power takes real float32 or float64 "
+                        f"alphas and betas of one dtype, not {dtype} and "
+                        f"{betas.dtype}")
+    m, lead = alphas.shape[-1], alphas.shape[:-1]
+    if not 1 <= m <= _RITZ_MAX_M or betas.shape != lead + (m - 1,):
+        raise ValueError(f"tridiag_ritz_power takes alphas (..., m), m <= "
+                         f"{_RITZ_MAX_M}, and betas (..., m-1): got "
+                         f"{tuple(alphas.shape)} and {tuple(betas.shape)}")
+    lam = torch.empty(lead, dtype=dtype, device=alphas.device)
+    w = torch.empty(lead + (m,), dtype=dtype, device=alphas.device)
+    B = lam.numel()
+    if B == 0:
+        return lam, w
+    a, sa = _ritz_rows(alphas, B, m)
+    b, sb = _ritz_rows(betas, B, m - 1)
+    _launch("tn_tridiag_ritz", dtype, alphas.device, a.data_ptr(), sa,
+            b.data_ptr(), sb, lam.data_ptr(), w.data_ptr(), B, m,
+            int(power_iters))
+    launch_counts["tridiag_ritz"] += 1
+    return lam, w
 
 
 # ---------------------------------------------------------------------------

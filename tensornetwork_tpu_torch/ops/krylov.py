@@ -136,6 +136,53 @@ def _lanczos(matvec, v0, num_krylov_vecs, reorthogonalize, delta,
     return V, alphas, betas
 
 
+def _tridiag(alphas: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
+    """The dense (..., m, m) matrix of tridiagonal projections."""
+    T = torch.diag_embed(alphas)
+    if betas.shape[-1]:
+        T = T + torch.diag_embed(betas, 1) + torch.diag_embed(betas, -1)
+    return T
+
+
+def tridiag_ritz_power_plain(alphas: torch.Tensor, betas: torch.Tensor,
+                             power_iters: int = 60
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The power Ritz step on PyTorch operations: the twin of K10
+    (:func:`~tensornetwork_tpu_torch.ops.kernels.tridiag_ritz_power`),
+    which :func:`tridiag_ritz` runs for CPU tensors.  Steepest descent
+    with a closed-form 2x2 Ritz step, started from e1 (a Rayleigh
+    quotient in the Krylov space, so variational)."""
+    T = _tridiag(alphas, betas)
+    w = torch.zeros_like(alphas)
+    w[..., 0] = 1.0
+
+    def mv(u):
+        return (T @ u[..., None])[..., 0]
+
+    def dot(a, b):
+        return (a * b).sum(-1)
+
+    for _ in range(power_iters):
+        Tw = mv(w)
+        lam = dot(w, Tw)
+        r = Tw - lam[..., None] * w
+        r = r - dot(w, r)[..., None] * w
+        rn = torch.linalg.vector_norm(r, dim=-1)
+        u = r / torch.where(rn > 1e-30, rn, 1.0)[..., None]
+        Tu = mv(u)
+        h = dot(w, Tu)
+        g = dot(u, Tu)
+        disc = torch.sqrt(torch.clamp((lam - g) ** 2 / 4 + h * h, min=0.0))
+        mu = (lam + g) / 2 - disc
+        v = h[..., None] * w + (mu - lam)[..., None] * u
+        vn = torch.linalg.vector_norm(v, dim=-1)
+        w2 = v / torch.where(vn > 1e-30, vn, 1.0)[..., None]
+        # a converged w whose residual is rounding noise can give h = 0
+        # and mu = lam exactly (v = 0): keep w rather than zero it
+        w = torch.where(((rn > 1e-14) & (vn > 1e-30))[..., None], w2, w)
+    return dot(w, mv(w)), w
+
+
 @tracing.spanned("ritz")
 def tridiag_ritz(alphas: torch.Tensor, betas: torch.Tensor,
                  method: str = "eigh",
@@ -145,43 +192,22 @@ def tridiag_ritz(alphas: torch.Tensor, betas: torch.Tensor,
     ``alphas`` (..., m), ``betas`` (..., m-1).  Returns ``(lam (...,), w
     (..., m))``.  ``"power"`` is the steepest-descent iteration with a
     closed-form 2x2 Ritz step started from e1 (a Rayleigh quotient in the
-    Krylov space, so variational); ``"eigh"`` is exact."""
-    m = alphas.shape[-1]
-    T = torch.diag_embed(alphas)
-    if m > 1:
-        T = T + torch.diag_embed(betas, 1) + torch.diag_embed(betas, -1)
+    Krylov space, so variational): one launch of K10 for CUDA tensors (m
+    <= 64; anything it does not take raises), its twin
+    :func:`tridiag_ritz_power_plain` for CPU tensors, counted as
+    ``ritz.kernel`` / ``ritz.plain`` in :data:`tracing.counts`.
+    ``"eigh"`` is exact."""
     if method == "power":
-        w = torch.zeros_like(alphas)
-        w[..., 0] = 1.0
-
-        def mv(u):
-            return (T @ u[..., None])[..., 0]
-
-        def dot(a, b):
-            return (a * b).sum(-1)
-
-        for _ in range(power_iters):
-            Tw = mv(w)
-            lam = dot(w, Tw)
-            r = Tw - lam[..., None] * w
-            r = r - dot(w, r)[..., None] * w
-            rn = torch.linalg.vector_norm(r, dim=-1)
-            u = r / torch.where(rn > 1e-30, rn, 1.0)[..., None]
-            Tu = mv(u)
-            h = dot(w, Tu)
-            g = dot(u, Tu)
-            disc = torch.sqrt(torch.clamp((lam - g) ** 2 / 4 + h * h, min=0.0))
-            mu = (lam + g) / 2 - disc
-            v = h[..., None] * w + (mu - lam)[..., None] * u
-            vn = torch.linalg.vector_norm(v, dim=-1)
-            w2 = v / torch.where(vn > 1e-30, vn, 1.0)[..., None]
-            # a converged w whose residual is rounding noise can give h = 0
-            # and mu = lam exactly (v = 0): keep w rather than zero it
-            w = torch.where(((rn > 1e-14) & (vn > 1e-30))[..., None], w2, w)
-        return dot(w, mv(w)), w
+        if alphas.device.type == "cpu":
+            tracing.add("ritz.plain")
+            return tridiag_ritz_power_plain(alphas, betas, power_iters)
+        # kernels imports this module
+        from tensornetwork_tpu_torch.ops import kernels
+        tracing.add("ritz.kernel")
+        return kernels.tridiag_ritz_power(alphas, betas, power_iters)
     if method != "eigh":
         raise ValueError(f"unknown Ritz method {method!r}")
-    evals, evecs = torch.linalg.eigh(T)
+    evals, evecs = torch.linalg.eigh(_tridiag(alphas, betas))
     return evals[..., 0], evecs[..., :, 0]
 
 
@@ -219,11 +245,7 @@ def eigsh_lanczos(matvec: Callable, initial_state: torch.Tensor,
             evals, evecs = lam[:, None], w[:, :, None]
         else:
             with tracing.span("ritz"):
-                T = torch.diag_embed(alphas)
-                if betas.shape[-1]:
-                    T = (T + torch.diag_embed(betas, 1)
-                         + torch.diag_embed(betas, -1))
-                evals, evecs = torch.linalg.eigh(T)
+                evals, evecs = torch.linalg.eigh(_tridiag(alphas, betas))
         vecs = torch.einsum("Bkn,Bke->Ben", V,
                             evecs[:, :, :numeig].to(V.dtype))
         norms = _norm(vecs.reshape(-1, n), reduce).reshape(

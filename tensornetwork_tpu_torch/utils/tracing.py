@@ -27,12 +27,13 @@ The spans (:data:`SPANS`), outermost first:
   bs_exec         one run of a block-sparse contraction executor
 
 Counters: :data:`counts` (``add``) holds ``solve_tier.<tier>``, the local
-solves by the tier they took (``plain`` for the unfused Lanczos), and
-``bs_true_flops`` / ``bs_padded_flops`` / ``bs_gemms``, the block-sparse
-executors' useful and padded multiply-add flops (B x the plan's, per run)
-and bucket GEMMs.  :func:`snapshot` returns them together with the
-port's other counters, under their module's name; :func:`reset` zeroes
-them all.
+solves by the tier they took (``plain`` for the unfused Lanczos),
+``ritz.kernel`` / ``ritz.plain``, the power Ritz steps run by K10 or by
+its CPU twin, and ``bs_true_flops`` / ``bs_padded_flops`` / ``bs_gemms``,
+the block-sparse executors' useful and padded multiply-add flops (B x the
+plan's, per run) and bucket GEMMs.  :func:`snapshot` returns them
+together with the port's other counters, under their module's name;
+:func:`reset` zeroes them all.
 """
 from __future__ import annotations
 

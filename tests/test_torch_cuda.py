@@ -14,6 +14,8 @@ from tensornetwork_tpu_torch.models import dmrg as tdmrg
 from tensornetwork_tpu_torch.models import mpo as tmpo
 from tensornetwork_tpu_torch.ops import decompositions as TD
 from tensornetwork_tpu_torch.ops import kernels as TK
+from tensornetwork_tpu_torch.ops import krylov as TKr
+from tensornetwork_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -1003,3 +1005,251 @@ def test_mera_iteration_on_the_card_matches_cpu(cuda):
     assert abs(ec - ep) < OBJ_TOL
     for a, b in zip(sc.us + sc.ws, sp.us + sp.ws):
         assert _rel(a.cpu(), b) < 1e-8
+
+
+# ---------------------------------------------------------------------------
+# K10: the power Ritz step (tridiag_ritz_power) against its twin
+# ---------------------------------------------------------------------------
+
+# lam relative, w absolute.  The closed-form 2x2 step stalls about sqrt(eps)
+# from the eigenvector, at a point the rounding picks: K10 and the twin,
+# which sum in other orders, agree on w to that floor (a gap factor above
+# it where 60 steps leave an instance short of it) and on lam to about its
+# square (tests/test_torch_tridiag_ritz.py).  K10's own arithmetic is held
+# bit for bit against _k10_model.
+RITZ_TOL = {torch.float32: (2e-5, 2e-3), torch.float64: (1e-11, 1e-6)}
+RITZ_CASES = ("projection", "dead", "zero_beta")
+
+
+def _ritz_projections(B, m, case, dtype, device, seed=0):
+    """ab (B, 2, m) in the fused Lanczos's layout (alphas in row 0, betas
+    in row 1): m Lanczos steps in float64 on random symmetric matrices
+    with a gapped ground state, from a start near the ground vector, cast
+    to ``dtype``.  ``"dead"``: the factorization broken down after m // 2
+    steps (beta 0 and the alpha sentinel 1e10 after them, as the fused
+    Lanczos leaves it); ``"zero_beta"``: beta zero at m // 2, the later
+    steps kept."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(dtype=torch.float64, device=device)
+    n = 2 * m + 8
+    q, _ = torch.linalg.qr(torch.randn(B, n, n, generator=g, **kw))
+    spectrum = torch.cat([torch.full((B, 1), -1.5, **kw),
+                          2 * torch.rand(B, n - 1, generator=g, **kw) - 1], 1)
+    H = (q * spectrum[:, None, :]) @ q.transpose(1, 2)
+    v0 = q[:, :, 0] + 0.5 * torch.randn(B, n, generator=g, **kw) / n ** 0.5
+    _, al, be = TKr.lanczos_factorization(
+        lambda x: (H @ x[..., None])[..., 0], v0, m)
+    k = max(m // 2, 1)
+    if case == "dead":
+        al[:, k:] = TKr.LARGE
+        be[:, k - 1:] = 0.0
+    if case == "zero_beta" and m > 1:
+        be[:, k - 1] = 0.0
+    ab = torch.zeros((B, 2, m), dtype=dtype, device=device)
+    ab[:, 0] = al
+    ab[:, 1, :m - 1] = be
+    return ab
+
+
+def _leading_ground(ab, case):
+    """The smallest eigenvalue (float64) of the block of each tridiagonal
+    that e1 lies in."""
+    m = ab.shape[-1]
+    k = max(m // 2, 1) if case == "zero_beta" else m
+    al, be = ab[:, 0, :k].double(), ab[:, 1, :k - 1].double()
+    T = (torch.diag_embed(al) + torch.diag_embed(be, 1)
+         + torch.diag_embed(be, -1))
+    return torch.linalg.eigvalsh(T)[:, 0].to(ab.dtype)
+
+
+def _k10_model(ab, iters=60):
+    """K10's arithmetic in numpy: T u sums a row's three terms left to
+    right, a dot product is a butterfly over 32 lanes holding entries j and
+    j + 32, and every operation rounds once, as the kernel's ``_rn``
+    intrinsics do.  Returns (lam (B,), w (B, m))."""
+    a, b = ab[:, 0].cpu().numpy(), ab[:, 1, :-1].cpu().numpy()
+    B, m = a.shape
+    t = a.dtype.type
+
+    def rows(x, n, shift):  # x[:, i + shift], i < 64, zero outside [0, n)
+        out = np.zeros((B, 64), a.dtype)
+        i = np.arange(64) + shift
+        ok = (i >= 0) & (i < n)
+        out[:, ok] = x[:, i[ok]]
+        return out
+
+    lo, d, hi = rows(b, m - 1, -1), rows(a, m, 0), rows(b, m - 1, 0)
+    zero = np.zeros((B, 1), a.dtype)
+    lane = np.arange(32)
+
+    def tmv(u):
+        um = np.concatenate([zero, u[:, :-1]], 1)
+        up = np.concatenate([u[:, 1:], zero], 1)
+        return lo * um + d * u + hi * up
+
+    def dot(x, y):
+        s = x[:, :32] * y[:, :32] + x[:, 32:] * y[:, 32:]
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, lane ^ o]
+        return s[:, :1]
+
+    w = np.zeros((B, 64), a.dtype)
+    w[:, 0] = 1
+    with np.errstate(all="ignore"):
+        for _ in range(iters):
+            tw = tmv(w)
+            lam = dot(w, tw)
+            r = tw - lam * w
+            r = r - dot(w, r) * w
+            rn = np.sqrt(dot(r, r))
+            u = r / np.where(rn > t(1e-30), rn, t(1))
+            tu = tmv(u)
+            h, g = dot(w, tu), dot(u, tu)
+            lg = lam - g
+            q = lg * lg / t(4) + h * h
+            q = np.where(q < 0, t(0), q)
+            mu = (lam + g) / t(2) - np.sqrt(q)
+            v = h * w + (mu - lam) * u
+            vn = np.sqrt(dot(v, v))
+            keep = (rn > t(1e-14)) & (vn > t(1e-30))
+            w = np.where(keep, v / np.where(vn > t(1e-30), vn, t(1)), w)
+        return dot(w, tmv(w))[:, 0], w[:, :m]
+
+
+@pytest.mark.parametrize("case", RITZ_CASES)
+@pytest.mark.parametrize("m", [1, 2, 3, 10, 20, 32, 64])
+@pytest.mark.parametrize("B", [1, 32, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tridiag_ritz_kernel_matches_twin(cuda, dtype, B, m, case):
+    ab = _ritz_projections(B, m, case, dtype, cuda, seed=m)
+    # strided rows of ab, as the fused tiers pass them
+    al, be = ab[:, 0, :], ab[:, 1, :m - 1]
+    TK.reset_launch_counts()
+    lam, w = TK.tridiag_ritz_power(al, be)
+    assert TK.launch_counts["tridiag_ritz"] == 1
+    assert lam.shape == (B,) and w.shape == (B, m) and w.dtype == dtype
+    lam0, w0 = TKr.tridiag_ritz_power_plain(al, be)
+    lam_tol, w_tol = RITZ_TOL[dtype]
+    # in float32 the shared step can turn a converged 2x2 pair off its
+    # eigenvector, or over to its negative (h = |r| is rounding noise, and
+    # so is the cancelled mu - lam): there K10 and the twin each follow
+    # their own rounding
+    exact = _leading_ground(ab, case)
+    off = ((lam - exact > lam_tol * exact.abs())
+           | (lam0 - exact > lam_tol * exact.abs()))
+    sign = torch.sign((w * w0).sum(-1, keepdim=True))
+    if dtype != torch.float32 or m != 2:
+        assert not bool(off.any()) and bool((sign > 0).all())
+    w0 = w0 * sign
+    rel = torch.where(off, 0.0, (lam - lam0).abs() / lam0.abs())
+    assert float(rel.max()) <= lam_tol
+    assert float(torch.where(off[:, None], 0.0, (w - w0).abs()).max()
+                 ) <= w_tol
+    model_lam, model_w = _k10_model(ab)
+    np.testing.assert_array_equal(lam.cpu().numpy(), model_lam)
+    np.testing.assert_array_equal(w.cpu().numpy(), model_w)
+    lam2, w2 = TK.tridiag_ritz_power(al, be)
+    assert torch.equal(lam, lam2) and torch.equal(w, w2)
+    if case == "dead":
+        assert not bool(w[:, max(m // 2, 1):].any())
+
+
+def test_tridiag_ritz_kernel_takes_any_leading_shape(cuda):
+    ab = _ritz_projections(32, 10, "projection", torch.float32, cuda)
+    lam, w = TK.tridiag_ritz_power(ab[:, 0], ab[:, 1, :9])
+    # (8, 4) instances whose rows cannot be viewed as (32, m): a copy
+    al = ab[:, 0].reshape(4, 8, 10).transpose(0, 1)
+    be = ab[:, 1, :9].reshape(4, 8, 9).transpose(0, 1)
+    lam2, w2 = TK.tridiag_ritz_power(al, be)
+    assert lam2.shape == (8, 4) and w2.shape == (8, 4, 10)
+    assert torch.equal(lam2, lam.reshape(4, 8).T)
+    assert torch.equal(w2, w.reshape(4, 8, 10).transpose(0, 1))
+
+
+def test_tridiag_ritz_kernel_keeps_a_converged_vector(cuda):
+    # tests/test_torch_symmetric_dmrg_batched.py's 2x2 case: a zero step
+    # (h = 0, mu = lam) must leave w as it is, not zero it
+    a = np.array([-0.7061787843704224, -1.6161364316940308], np.float32)
+    b = np.array([0.1387786865234375], np.float32)
+    al = torch.tensor(a, device=cuda)[None]
+    be = torch.tensor(b, device=cuda)[None]
+    lam, w = TK.tridiag_ritz_power(al, be)
+    lam0, w0 = TKr.tridiag_ritz_power_plain(al, be)
+    exact = np.linalg.eigvalsh(np.diag(a.astype(np.float64))
+                               + np.diag(b, 1) + np.diag(b, -1))[0]
+    assert abs(float(lam[0]) - exact) < 1e-6
+    assert abs(float(torch.linalg.vector_norm(w)) - 1.0) < 1e-6
+    assert float((w - w0).abs().max()) <= RITZ_TOL[torch.float32][1]
+
+
+def test_power_ritz_on_the_card_launches_k10_or_raises(cuda):
+    ab = _ritz_projections(4, 10, "projection", torch.float32, cuda)
+    tracing.reset()
+    TK.reset_launch_counts()
+    TKr.tridiag_ritz(ab[:, 0], ab[:, 1, :9], "power")
+    assert TK.launch_counts["tridiag_ritz"] == 1
+    assert tracing.counts.get("ritz.kernel") == 1
+    assert "ritz.plain" not in tracing.counts
+    a = torch.randn(3, 65, device=cuda)
+    b = torch.rand(3, 64, device=cuda)
+    with pytest.raises(ValueError, match="m <= 64"):
+        TKr.tridiag_ritz(a, b, "power")
+    with pytest.raises(TypeError):
+        TK.tridiag_ritz_power(a[:, :10].to(torch.complex64),
+                              b[:, :9].to(torch.complex64))
+    with pytest.raises(ValueError, match="CUDA device"):
+        TK.tridiag_ritz_power(a[:, :10].cpu(), b[:, :9])
+    with pytest.raises(ValueError, match="CUDA device"):
+        TK.tridiag_ritz_power(a[:, :10], b[:, :9].cpu())
+    assert TK.launch_counts["tridiag_ritz"] == 1
+    tracing.reset()
+
+
+def test_batched_sweep_with_k10_matches_the_twin(cuda, monkeypatch):
+    from tensornetwork_tpu_torch.parallel.batch import batched_one_site_sweep
+    N, chi, B, sweeps = 8, 16, 8, 4
+    mpo = tmpo.FiniteTFI(1.0, 1.0, N=N, dtype=torch.float32, device=cuda)
+    As0 = tdmrg.random_mps_stack(3, B * N, chi, 2, dtype=torch.float32,
+                                 device=cuda).reshape(B, N, chi, 2, chi)
+
+    def run():
+        TK.reset_launch_counts()
+        As, renvs = As0.clone(), None
+        for _ in range(sweeps):
+            res = batched_one_site_sweep(As, mpo.Ws, mpo.vL, mpo.vR,
+                                         num_krylov_vecs=10, renvs=renvs)
+            As, renvs = res.As, res.renvs
+        return res.energy.cpu().numpy(), TK.launch_counts["tridiag_ritz"]
+
+    e_kernel, launches = run()
+    assert launches == sweeps * 2 * N
+    monkeypatch.setattr(TK, "tridiag_ritz_power",
+                        TKr.tridiag_ritz_power_plain)
+    e_twin, launches = run()
+    assert launches == 0
+    np.testing.assert_allclose(e_kernel, e_twin, rtol=1e-5, atol=0)
+
+
+def test_symmetric_sweep_with_k10_matches_the_twin(cuda, monkeypatch):
+    from tensornetwork_tpu_torch.blocksparse import batched as TBt
+    from tensornetwork_tpu_torch.models.symmetric_dmrg import u1_xxz_mpo
+    from tensornetwork_tpu_torch.models.symmetric_dmrg_batched import (
+        BatchedSymmetricDMRG)
+    N, chi, B, sweeps = 6, 8, 2, 4
+    skel = TBt.uniform_skeleton_mps(N, chi, dtype=torch.float32, device=cuda)
+    data = TBt.random_data_batch(skel, B, seed=1, device=cuda)
+    mpo = u1_xxz_mpo(1.0, 1.0, 0.0, N, dtype=torch.float32, device=cuda)
+
+    def run():
+        TK.reset_launch_counts()
+        d = BatchedSymmetricDMRG(skel, [x.clone() for x in data], mpo)
+        es = d.run_one_site(num_sweeps=sweeps)
+        return np.asarray(es), TK.launch_counts["tridiag_ritz"]
+
+    e_kernel, launches = run()
+    assert launches == sweeps * 2 * (N - 1)
+    monkeypatch.setattr(TK, "tridiag_ritz_power",
+                        TKr.tridiag_ritz_power_plain)
+    e_twin, launches = run()
+    assert launches == 0
+    np.testing.assert_allclose(e_kernel, e_twin, rtol=1e-5, atol=0)
