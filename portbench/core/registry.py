@@ -6,9 +6,12 @@ sits in a file of its own, found by the name ``BENCHMARK.json`` gives:
     configs/<config>.json      the configuration as it is run
     drivers/<driver>.py        one per entry kind of the port
     metrics/<metric>.py        one per metric: what it wraps, its reader
+    reference/hamiltonians/<model>.py
+                               one per model: the reference's MPO and
+                               exact energy of a configuration's ``model``
 
-A later cell, configuration or metric is a new file; no file here names
-one.  ``root`` is the benchmark's folder (a test passes a temporary one).
+A later cell, configuration, metric or model is a new file; no file here
+names one.  ``root`` is the benchmark's folder (a test passes a temporary one).
 """
 from __future__ import annotations
 
@@ -35,8 +38,11 @@ def workload(name: str, root: str = ROOT) -> dict:
 
 
 def config(name: str, root: str = ROOT) -> dict:
+    """The configuration's file, with its ``name`` and the ``root`` it was
+    found under (where its model's Hamiltonian file is looked up)."""
     cfg = _json(os.path.join(root, "configs", name + ".json"))
     cfg["name"] = name
+    cfg["root"] = root
     return cfg
 
 
@@ -45,8 +51,9 @@ def _module(kind: str, name: str, root: str) -> ModuleType:
     that a temporary folder's files load as the benchmark's do)."""
     path = os.path.join(root, kind, name + ".py")
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no {kind[:-1]} file {path}")
-    key = f"portbench_{kind}_{abs(hash(path))}_{name.replace('.', '_')}"
+        raise FileNotFoundError(f"{name!r}: no file {path}")
+    key = (f"portbench_{kind.replace('/', '_')}_{abs(hash(path))}_"
+           f"{name.replace('.', '_')}")
     if key in sys.modules:
         return sys.modules[key]
     spec = importlib.util.spec_from_file_location(key, path)
@@ -62,6 +69,10 @@ def driver(name: str, root: str = ROOT) -> ModuleType:
 
 def metric(name: str, root: str = ROOT) -> ModuleType:
     return _module("metrics", name, root)
+
+
+def hamiltonian(model: str, root: str = ROOT) -> ModuleType:
+    return _module("reference/hamiltonians", model, root)
 
 
 def benchmark(path: Optional[str] = None) -> dict:

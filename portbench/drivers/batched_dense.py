@@ -1,6 +1,9 @@
 """Batched dense one-site DMRG: ``parallel.batch.batched_one_site_sweep``
 with its defaults (polar gauge, power Ritz, the default epilogue), B
-instances of one MPO, chained sweeps from the returned environments."""
+instances of one MPO, chained sweeps from the returned environments.  The
+MPO is the one the configuration's ``program_mpo`` names: a public builder
+of the port, called with the configuration's values of the keys it
+lists."""
 from __future__ import annotations
 
 import torch
@@ -10,11 +13,15 @@ from portbench.core import work
 
 
 def _mpo(cfg: dict, dtype, device):
-    from tensornetwork_tpu_torch import FiniteTFI
-    if cfg["model"] != "tfi":
-        raise ValueError(f"no dense MPO for {cfg['model']!r}")
-    return FiniteTFI(cfg["Jx"], cfg["Bz"], N=cfg["N"], dtype=dtype,
-                     device=device)
+    import tensornetwork_tpu_torch
+    spec = cfg["program_mpo"]
+    builder = getattr(tensornetwork_tpu_torch, spec["builder"])
+    mpo = builder(**{k: cfg[k] for k in spec["args"]}, dtype=dtype,
+                  device=device)
+    if mpo.Ws.shape[0] != cfg["N"]:
+        raise ValueError(f"{spec['builder']} gave {mpo.Ws.shape[0]} sites "
+                         f"for a state of N = {cfg['N']}")
+    return mpo
 
 
 def inputs(cfg: dict, wl: dict, seed: int, device) -> dict:

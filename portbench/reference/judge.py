@@ -10,11 +10,11 @@ with its own MPO of the configuration's Hamiltonian:
              left the other sites canonical are all right;
   excess     <psi|H|psi>/<psi|psi> - E_ground of each instance: the sweeps
              reached the ground state.  E_ground is exact where the
-             configuration has a closed form; else, where the workload
-             names a ``reference`` (bond ``chi``, ``sweeps``, ``krylov``),
-             the float64 energy of the plain sweep on the instance's own
-             Hamiltonian from its own start, an upper bound on the exact
-             one that takes nothing from the program;
+             model's Hamiltonian file gives a closed form; else, where
+             the workload names a ``reference`` (bond ``chi``, ``sweeps``,
+             ``krylov``), the float64 energy of the plain sweep on the
+             instance's own Hamiltonian from its own start, an upper
+             bound on the exact one that takes nothing from the program;
   gauge_err  max |sum_s A_s A_s^T - I| over sites 1..N-1 (printed; it is
              compared only where the workload gives it a limit).
 

@@ -28,6 +28,7 @@ def tiny_root(tmp_path_factory):
         wl = registry.workload(real)
         cfg = registry.config(wl["config"])
         cfg.update(N=N)
+        del cfg["root"]
         cfg_name = cfg.pop("name") + "_tiny"
         with open(os.path.join(root, "configs", cfg_name + ".json"), "w") as f:
             json.dump(cfg, f)
@@ -42,6 +43,23 @@ def tiny_root(tmp_path_factory):
     with open(path, "w") as f:
         json.dump(bench, f)
     return root, path
+
+
+def add_cell(tiny_root, new_path, cfg_name, cfg, cell, wl, metrics=()):
+    """Write a configuration, a cell and the per-layer ``metrics`` entries
+    as new files under the tiny root, with a BENCHMARK.json at
+    ``new_path`` that lists them beside what the tiny root's lists:
+    (root, new BENCHMARK.json path)."""
+    root, path = tiny_root
+    with open(os.path.join(root, "configs", cfg_name + ".json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(root, "workloads", cell + ".json"), "w") as f:
+        json.dump(dict(wl, config=cfg_name), f)
+    bench = registry.benchmark(path)
+    bench["per_layer"].extend(metrics)
+    with open(new_path, "w") as f:
+        json.dump(bench, f)
+    return root, str(new_path)
 
 
 def run_cell(tiny_root, cell, seed=3000000019, seconds=1.0, trace=0):

@@ -1,10 +1,14 @@
-"""On the card: each driver through a whole run of its tiny cell, and the
-control, which has to come out not correct.  Marked ``cuda``; each test
+"""On the card: each driver through a whole run of its tiny cell, a cell of
+a model added as new files, and the control, which has to come out not
+correct.  Marked ``cuda``; each test
 decides inside itself whether there is a card.  On the card:
 ``python -m pytest portbench/tests -m cuda -q``."""
 import pytest
 
 from portbench.core import harness, registry
+
+from conftest import add_cell
+from test_portbench_layout import FF2D, FF2D_CELL
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +34,19 @@ def test_driver_on_the_card(tiny_root, card, cell, trace):
     if trace:
         assert res["device"]["busy_s"] > 0
         assert "device_idle_share" in res["metrics"]
+
+
+def test_a_new_hamiltonian_cell_on_the_card(tiny_root, tmp_path, card):
+    """The 2 x 3 free-fermion strip's cell, new files only: the port's MPO
+    from the configuration's ``program_mpo``, K2 at M = 12, correct
+    against the model's exact energy."""
+    root, path = add_cell(tiny_root, tmp_path / "BENCHMARK.json",
+                          "ff2d_2x3", FF2D, "ff2d.tiny", FF2D_CELL)
+    code, res = harness.execute(
+        ["--workload", "ff2d.tiny", "--seed", "2147483791", "--seconds", "1",
+         "--trace", "0"], root=root, bench_path=path)
+    assert code == 0 and res["correct"] is True
+    assert res["device"]["platform"] == "gpu"
 
 
 @pytest.mark.parametrize("cell,batch", [("tfi_n32.chi64_b4096", 256),
